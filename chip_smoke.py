@@ -11,11 +11,10 @@ Phases; any failure raises and the script exits non-zero:
 2. Build: compiles, all at once, the CUDA Riccati kernels (csrc/riccati.cu),
    the fused line-search probe generated for each chain path's model
    (ops/ls_probe.py), the tree probe generated for robust_tree
-   (csrc/ls_probe_tree.cuh; also its variant that reads every node again
-   per use instead of keeping the points in registers) and the four
-   whole-iteration kernels generated for cartpole, chain16 and the
-   quadrotor (ops/fused_iter.py), one nvcc per library; prints each
-   kernel's registers and spills.
+   (csrc/ls_probe_tree.cuh) and the four whole-iteration kernels
+   generated for cartpole, chain16 and the quadrotor (ops/fused_iter.py),
+   one nvcc per library;
+   prints each kernel's registers and spills.
 3. Kernels: each kernel's wrapper against its plain PyTorch twin on the
    card.  Riccati kernels on random float32 chain data: the cartpole shape
    (B=4096, T=50, n=4, m=1), a ragged batch (B=1000), the quadrotor shape
@@ -28,7 +27,12 @@ Phases; any failure raises and the script exits non-zero:
    both models at B=4096 with 6 candidates, some of them infeasible: -inf
    patterns identical, finite entries within 2e-5 relative.  The tree
    probe the same way on robust_tree (horizon 50: 51 nodes, 50 edges) at
-   B=4096 and a ragged B=1000, with its device time per launch.
+   B=4096 and a ragged B=1000, with its device time per launch.  The four
+   fused kernels on cartpole, quadrotor (exact) and chain16 at B=4096,
+   T=50 against their twins (FACTOR_TOL, SOLVE_TOL, statuses identical,
+   the Newton step at the solver's delta under compare's rule), with the
+   factor's and eval's launch configuration, ptxas line and wrapper time
+   less device time.
    Times from CUDA events after warm-up, beside each kernel's bound.
 4. Cartpole path: batched warm-started cartpole MPC (horizon 50, batch
    4096, float32, Gauss-Newton, 5 fixed interior-point trips per step,
@@ -588,9 +592,10 @@ def fused_flops(name, spec, bounds):
     if name == "fused_factor":
         edge = _riccati_flops("riccati_factor_gram" if n >= 8
                               else "riccati_factor", n, m)
-        # + condensation: Q = Hn + Hxx + diag, R = Huu + diag
-        return T * (ops(spec.dyn_jac, spec.nhess, spec.ehess) + 2 * n * n
-                    + n + m * m + m + edge)
+        # + condensation: Q = Hn + Hxx + diag, R = Huu + diag; the
+        # terminal node's Hessian and diagonal
+        return (T * (ops(spec.dyn_jac, spec.nhess, spec.ehess) + 2 * n * n
+                     + n + m * m + m + edge) + ops(spec.nhess) + n)
     if name == "fused_solve_bwd":
         # + the root solve: F, chol, two triangular solves, y
         return (T * (_riccati_flops("riccati_solve_bwd", n, m) + recompute)
@@ -600,29 +605,32 @@ def fused_flops(name, spec, bounds):
     if name == "fused_eval":
         finite = sum(int(np.isfinite(b).sum()) for b in bounds)
         # + gx, ctx, cdyn, the |stat| and |c| maxima, gu, ctu, and the d*z
-        # terms of the finite bounds
-        return T * (ops(spec.ncost_grad, spec.ecost_grad, spec.dyn_vjp,
-                        spec.dyn, spec.ncost, spec.ecost)
-                    + 9 * n + 6 * m + 4 * finite)
+        # terms of the finite bounds; node T and the root row
+        return (T * (ops(spec.ncost_grad, spec.ecost_grad, spec.dyn_vjp,
+                         spec.dyn, spec.ncost, spec.ecost)
+                     + 9 * n + 6 * m + 4 * finite)
+                + ops(spec.ncost_grad, spec.ncost) + 9 * n
+                + 4 * sum(int(np.isfinite(b).sum()) for b in bounds[2:]))
     raise KeyError(name)
 
 
 def fused_bytes(name, spec):
     """Bytes per scenario that each fused kernel reads and writes once, the
     operands as csrc/fused_iter.cuh uses them (float32; V and F_chol in
-    nsym rows): the factor reads the terminal Q, x, u, r1x and r1u at the
-    T edges and y at the children in exact mode only; both solve kernels
-    read the stored A and B at n < GRAM_N and x, u at the T edges to
-    recompute them otherwise; solve_bwd reads V_root but no V_child,
-    solve_fwd V_child but neither G_chol nor V_root; eval reads the iterate
-    and the bound duals and writes the T edges' gradients and residuals
-    (the terminal node is merged outside the kernel)."""
+    nsym rows): the factor reads x and r1x at the T + 1 nodes (the terminal
+    node's Hessian is formed in the kernel), u and r1u at the T edges and y
+    at the children in exact mode only; both solve kernels read the stored
+    A and B at n < GRAM_N and x, u at the T edges to recompute them
+    otherwise; solve_bwd reads V_root but no V_child, solve_fwd V_child but
+    neither G_chol nor V_root; eval reads the iterate, x0 and the bound
+    duals and writes every node's and edge's gradients and residuals (node
+    T and the root row included)."""
     from sip_optimal_control_tpu_torch.ops import fused_iter as fi
     T, n, m = spec.horizon, spec.n, spec.m
     s, small = fi.nsym(n), n < fi.GRAM_N
     jac = T * (n * n + n * m) if small else T * (n + m)
     if name == "fused_factor":
-        floats = (n * n + T * (2 * n + 2 * m) + (T * n if spec.exact else 0)
+        floats = (2 * (T + 1) * n + 2 * T * m + (T * n if spec.exact else 0)
                   + 1                                       # reads
                   + T * (2 * s + m * n + m * m) + s         # writes
                   + (T * (n * n + n * m) if small else 0))
@@ -633,8 +641,8 @@ def fused_bytes(name, spec):
         floats = (2 * n + T * (m + m * n + n + n + 2 * s) + jac + 1
                   + T * m + 2 * (T + 1) * n)
     elif name == "fused_eval":
-        floats = (2 * (T + 1) * n + T * m + 2 * T * (n + m)
-                  + 3 * T * n + 2 * T * m + 7)
+        floats = (2 * (T + 1) * n + T * m + n + 2 * (T + 1) * n + 2 * T * m
+                  + 3 * (T + 1) * n + 2 * T * m + 7)
     else:
         raise KeyError(name)
     return 4 * floats
@@ -718,10 +726,38 @@ def kernel_device_ms(calls, prefix, reps=5):
     return out
 
 
-FUSED_NAMES = {"fused_factor": "factor_kernel",
+# each fused kernel's name in the profiler and in ptxas's log (the factor:
+# factor_thread_kernel at n < 8, factor_team_kernel above)
+FUSED_NAMES = {"fused_factor": "factor_",
                "fused_solve_bwd": "solve_bwd_kernel",
                "fused_solve_fwd": "solve_fwd_kernel",
                "fused_eval": "eval_kernel"}
+
+
+def device_ms_of(dev, name):
+    """The device ms per launch of fused kernel `name` in a
+    kernel_device_ms result."""
+    hits = [v for k, v in dev.items() if k.startswith(FUSED_NAMES[name])]
+    if len(hits) != 1:
+        raise AssertionError(f"{name}: device times {dev}")
+    return hits[0]
+
+
+def ptxas_line(lib_path, kernel):
+    """One line of ptxas's report for the entry whose name holds `kernel`:
+    registers, stack frame, spill stores and loads."""
+    from sip_optimal_control_tpu_torch.ops import cuda_build
+    lines = cuda_build.ptxas_report(lib_path).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and kernel in line:
+            mangled = line.split("'")[1]
+            body = []
+            for nxt in lines[i + 1:]:
+                if "Compiling entry" in nxt:
+                    break
+                body.append(nxt.strip().replace("ptxas info    : ", ""))
+            return f"{mangled}: " + "; ".join(body)
+    raise AssertionError(f"no ptxas entry for {kernel} in {lib_path}")
 
 
 def check_fused(device):
@@ -810,6 +846,11 @@ def check_fused(device):
         dev = kernel_device_ms([lambda fn=fn, args=args: fn(*args)
                                 for fn, _, args, _ in cases.values()],
                                "void fused_iter::")
+        lib = fi.build_library(spec, bounds)[0]
+        for name in ("fused_factor", "fused_eval"):
+            log(f"launch[{name} {model}] B={BATCH}: "
+                f"{json.dumps(fi.launch_config(entries, name, BATCH))}; "
+                f"ptxas {ptxas_line(lib, FUSED_NAMES[name])}")
         recs = {}
         for name, (fn, twin, args, tol) in cases.items():
             ms = time_ms(lambda: fn(*args), reps=20)
@@ -821,12 +862,13 @@ def check_fused(device):
             recs[name] = {
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "max_abs_err": errs[name], "ms": ms,
-                "device_ms": dev[FUSED_NAMES[name]], "plain_ms": plain_ms,
+                "device_ms": device_ms_of(dev, name), "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": None}
             log(f"time[{name} {model}] B={BATCH} T={HORIZON}: wrapper "
                 f"{ms:.4f} ms, device {recs[name]['device_ms']:.4f} ms per "
-                f"launch, plain twin {plain_ms:.4f} ms, bound "
+                f"launch (wrapper - device {ms - recs[name]['device_ms']:.4f}"
+                f" ms), plain twin {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by})")
         for name, rec in recs.items():
             if model == "cartpole":

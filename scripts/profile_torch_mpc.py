@@ -11,7 +11,7 @@ tree LQR in plain PyTorch and the tree probe kernel) with the tree probe
 and with the standard probe, then both chain paths on the fused whole
 iteration (fused_iteration=True, the bench's default: the fused eval,
 factor and solve kernels and the probe).  ``--model`` profiles one path
-only.  For each:
+only; ``--fused`` only the fused iteration's paths.  For each path:
 warm-up, a timed untraced run, then a few steps under torch.profiler;
 prints the wall time per step, the device's busy and idle share, the kernel
 launches per step, on the standard iteration the LQR's share of the ops
@@ -19,7 +19,7 @@ dispatched (one launch each), and the kernels that take the most device
 time.  Needs a CUDA GPU:
 
     python scripts/profile_torch_mpc.py [--steps 5] \
-        [--model cartpole|chain16|robust_tree]
+        [--model cartpole|chain16|robust_tree] [--fused]
 """
 
 import argparse
@@ -143,6 +143,8 @@ def main():
                         help="untimed warm-up and timed steps")
     parser.add_argument("--model", choices=sorted(chip_smoke.PATHS),
                         default=None, help="profile this path only")
+    parser.add_argument("--fused", action="store_true",
+                        help="profile the fused iteration's paths only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_mpc: needs a CUDA GPU", file=sys.stderr)
@@ -156,7 +158,7 @@ def main():
           f"{chip_smoke.BATCH}")
     want = (lambda name: args.model in (None, name))
     for name in ("cartpole", "chain16", "robust_tree"):
-        if not want(name):
+        if args.fused or not want(name):
             continue
         model, state = chip_smoke.main_path_inputs(device, model=name)
         if name == "chain16":

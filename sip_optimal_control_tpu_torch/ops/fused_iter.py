@@ -33,6 +33,14 @@ programs run with tensors, the CPU check of the kernels' arithmetic).
 package's ``_factor_solve_reference`` and ``_eval_reference``: the stage
 blocks from ``torch.func`` through the chain LQR of ``ops/lqr.py``.
 
+The terminal node is the kernels' own (JAX forms it outside its kernels):
+the factor starts its carry from the generated node Hessian at stage T, the
+eval evaluates node T and the root row; ``_terminal_q`` (torch.func) serves
+the factor's plain twin only.  The eval kernel sums the objective in its
+warp's order, which the codegen route reproduces (``lane_tree_sum``).  The
+factor runs the recursion in one thread per scenario at n < GRAM_N and in a
+team of lanes per scenario at n >= GRAM_N, up to FUSED_MAX_DIM.
+
 Layout.  The iterate and the per-stage vectors stay in the port's
 [B, stage, dim] layout and the kernels read them in place.  The factor
 products go to device memory once, structure-of-arrays [T, rows, B] (one
@@ -44,7 +52,8 @@ recomputed in the solve kernels from (x, u) (JAX fused_iter.py:684-697).
 
 Scope (checked by ``model.py``): the fused probe's (chain, uniform dims,
 no theta, no constraint functions, stage-constant box bounds), float32,
-and every derivative graph within the code generator's rules.
+n and m at most FUSED_MAX_DIM, and every derivative graph within the code
+generator's rules.
 """
 
 from __future__ import annotations
@@ -70,6 +79,13 @@ from .stage_codegen import ScalarProgram, build_program, emit_cuda, evaluate
 # F_chol lower-packed at n >= PACK_N (JAX fused_iter.py:693-697)
 GRAM_N = 8
 PACK_N = 6
+# the largest n and m the fused kernels take: the factor's team of lanes per
+# scenario holds at most a warp, and its shared memory a block's
+# (csrc/fused_iter.cuh: FactorCfg)
+FUSED_MAX_DIM = 32
+# the eval kernel's lanes per scenario (csrc/fused_iter.cuh: kEvalLanes):
+# the objective's summation order
+EVAL_LANES = 32
 
 KERNEL_NAMES = ("fused_factor", "fused_solve_bwd", "fused_solve_fwd",
                 "fused_eval")
@@ -198,9 +214,12 @@ def build_fused_iter_spec(dynamics, node_cost, edge_cost, horizon: int,
                           dtype: torch.dtype = torch.float32,
                           device="cpu") -> Optional[FusedIterSpec]:
     """Trace and lower every stage function and derivative the kernels
-    need; None when one cannot be traced or has an op the code generator
-    does not lower (as ``ls_probe.build_fused_spec``).  Cached: a model
-    rebuilt every MPC step traces once."""
+    need; None when n or m exceeds FUSED_MAX_DIM, or when one cannot be
+    traced or has an op the code generator does not lower (as
+    ``ls_probe.build_fused_spec``).  Cached: a model rebuilt every MPC step
+    traces once."""
+    if max(n, m) > FUSED_MAX_DIM:
+        return None
     base = build_fused_spec(dynamics, node_cost, edge_cost, horizon, n, m,
                             dtype, device)
     if base is None:
@@ -320,6 +339,7 @@ class _AutodiffBlocks:
 
     def __init__(self, spec: FusedIterSpec, x, u, y=None, hessians=True):
         T = spec.horizon
+        self.spec, self.x = spec, x
         ids = _stage_ids(x, T)
         xp = x[:, :-1]
         self.A, self.B = _per_stage(
@@ -342,6 +362,9 @@ class _AutodiffBlocks:
     def jac(self, e):
         return self.A[:, e], self.B[:, e]
 
+    def terminal_q(self, r1x):
+        return _terminal_q(self.spec, self.x, r1x)
+
     def hess(self, e):
         return self.Hn[:, e], self.Hxx[:, e], self.Hxu[:, e], self.Huu[:, e]
 
@@ -356,6 +379,13 @@ class _CodegenBlocks:
 
     def _i(self, e):
         return torch.tensor(e, dtype=torch.int32, device=self.x.device)
+
+    def terminal_q(self, r1x):
+        """The carry's start as the factor kernel forms it: the generated
+        node Hessian at stage T."""
+        T, n = self.spec.horizon, self.spec.n
+        hn = evaluate(self.spec.nhess, self.x[:, T], self.th0, self._i(T))
+        return hn.reshape(-1, n, n) + torch.diag_embed(r1x[:, T])
 
     def jac(self, e):
         n, m = self.spec.n, self.spec.m
@@ -386,7 +416,8 @@ def _eye(n, like):
 
 def _terminal_q(spec: FusedIterSpec, x, r1x):
     """Q_mod[T] = d2 node_cost / dx2 at x_T + diag(r1x_T), the factor's
-    carry init, formed outside the kernel (JAX fused_iter.py:674-681)."""
+    carry init, from torch.func (JAX fused_iter.py:674-681; the plain twin's
+    only: the kernel evaluates it as stage T of its node Hessian)."""
     T = spec.horizon
     Ti = torch.tensor(T, device=x.device)
     th0 = x.new_zeros(0)
@@ -402,7 +433,7 @@ def _factor_loop(spec: FusedIterSpec, blocks, x, u, y, r1x, r1u,
     T, n, m = spec.horizon, spec.n, spec.m
     d = delta[:, None, None]
     eye = _eye(n, x)
-    V = _terminal_q(spec, x, r1x)
+    V = blocks.terminal_q(r1x)
     outs = []
     for t in range(T):
         e = T - 1 - t
@@ -619,12 +650,6 @@ def _finite_terms(v, z, bnd, lower: bool):
     return out
 
 
-def _fold_minmax(mn, mx, terms):
-    for t in terms:
-        mn, mx = torch.minimum(mn, t), torch.maximum(mx, t)
-    return mn, mx
-
-
 def _lane_amax(t, floor=None):
     out = t.flatten(1).amax(-1)
     return out if floor is None else torch.clamp(out, min=floor)
@@ -637,7 +662,6 @@ def eval_reference(spec: FusedIterSpec, bounds, x, u, y, x0, zlx, zlu, zux,
     Returns (f [B], gx [B,N,n], gu [B,T,m], ctx [B,N,n], ctu [B,T,m],
     cdyn [B,N,n], res [B,6]) with res the packed KKT reductions [max|stat|,
     max|c|, min/max d*z (lower), min/max d*z (upper)]."""
-    lb_u, ub_u, lb_x, ub_x = bounds
     T = spec.horizon
     ids_e, ids_n = _stage_ids(x, T), _stage_ids(x, T + 1)
     xp, xc, yc = x[:, :-1], x[:, 1:], y[:, 1:]
@@ -656,92 +680,70 @@ def eval_reference(spec: FusedIterSpec, bounds, x, u, y, x0, zlx, zlu, zux,
                     argnums=(0, 1))(xv, uv)
     aty, ctu = _per_stage(vjp, (xp, u), ids_e, (yc,))
     ctx = torch.cat([aty, zero_row], 1) - y
+    return f, gx, gu, ctx, ctu, cdyn, _packed_res(
+        bounds, x, u, gx, gu, ctx, ctu, cdyn, zlx, zlu, zux, zuu)
+
+
+def _packed_res(bounds, x, u, gx, gu, ctx, ctu, cdyn, zlx, zlu, zux, zuu):
+    """res [B, 6]: max |stat|, max |c|, min / max d*z over the finite lower
+    bounds, min / max d*z over the finite upper ones (NaN propagates)."""
+    lb_u, ub_u, lb_x, ub_x = bounds
     stat = torch.maximum(_lane_amax((gx + ctx + zux - zlx).abs(), 0.0),
                          _lane_amax((gu + ctu + zuu - zlu).abs(), 0.0))
-    cd = _lane_amax(cdyn.abs(), 0.0)
-    res = [stat, cd]
+    res = [stat, _lane_amax(cdyn.abs(), 0.0)]
     for lower, bx, bu, zx, zu in ((True, lb_x, lb_u, zlx, zlu),
                                   (False, ub_x, ub_u, zux, zuu)):
-        mn, mx = torch.full_like(f, math.inf), torch.full_like(f, -math.inf)
+        mn = torch.full_like(stat, math.inf)
+        mx = torch.full_like(stat, -math.inf)
         for t in (_finite_terms(x, zx, bx, lower)
                   + _finite_terms(u, zu, bu, lower)):
             mn = torch.minimum(mn, t.amin(-1))
             mx = torch.maximum(mx, t.amax(-1))
         res += [mn, mx]
-    return f, gx, gu, ctx, ctu, cdyn, torch.stack(res, -1)
+    return torch.stack(res, -1)
 
 
-def _terminal_eval(spec: FusedIterSpec, bounds, x, y, x0, zlx, zux, f, gx,
-                   ctx, cdyn, res):
-    """The terminal node and the root row, outside the kernel (JAX
-    fused_iter.py:885-918): writes gx[:, T], ctx[:, T] and cdyn[:, 0] in
-    place; returns (f, res) with the terminal node merged in."""
-    _, _, lb_x, ub_x = bounds
-    T = spec.horizon
-    Ti = torch.tensor(T, device=x.device)
-    th0 = x.new_zeros(0)
-    xT = x[:, T]
-    gT = vmap(grad(spec.ncost_orig), in_dims=(0, None, None))(
-        xT, th0, Ti).to(x.dtype)
-    fT = vmap(spec.ncost_orig, in_dims=(0, None, None))(xT, th0,
-                                                        Ti).to(x.dtype)
-    gx[:, T] = gT
-    ctx[:, T] = -y[:, T]
-    cdyn[:, 0] = x0 - x[:, 0]
-    statT = gT - y[:, T] + zux[:, T] - zlx[:, T]
-    stat = torch.maximum(res[:, 0], statT.abs().amax(-1))
-    cd = torch.maximum(res[:, 1], cdyn[:, 0].abs().amax(-1))
-    cl = _fold_minmax(res[:, 2], res[:, 3],
-                      _finite_terms(xT, zlx[:, T], lb_x, True))
-    cu = _fold_minmax(res[:, 4], res[:, 5],
-                      _finite_terms(xT, zux[:, T], ub_x, False))
-    return f + fT, torch.stack([stat, cd, *cl, *cu], -1)
+def lane_tree_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum [B, K] over K in the eval kernel's order: lane j of a warp adds
+    terms j, j + 32, ... in turn, then the lanes combine by an xor butterfly
+    (every lane ends with the same value: a + b and b + a round alike)."""
+    lanes = terms.new_zeros(terms.shape[0], EVAL_LANES)
+    for k in range(terms.shape[1]):
+        lanes[:, k % EVAL_LANES] = lanes[:, k % EVAL_LANES] + terms[:, k]
+    idx = torch.arange(EVAL_LANES, device=terms.device)
+    off = EVAL_LANES // 2
+    while off >= 1:
+        lanes = lanes + lanes[:, idx ^ off]
+        off //= 2
+    return lanes[:, 0]
 
 
 def eval_codegen(spec: FusedIterSpec, bounds, x, u, y, x0, zlx, zlu, zux,
                  zuu):
-    """What the eval kernel computes, in its order of operations, with the
-    stage functions from the generated programs; same contract as
-    ``eval_reference``."""
-    lb_u, ub_u, lb_x, ub_x = bounds
-    T, n, m = spec.horizon, spec.n, spec.m
-    B = x.shape[0]
-    th0 = x.new_zeros(B, 0)
-    gx, ctx, cdyn = (torch.empty_like(x) for _ in range(3))
-    gu, ctu = torch.empty_like(u), torch.empty_like(u)
-    f = x.new_zeros(B)
-    stat, cd = x.new_zeros(B), x.new_zeros(B)
-    inf = torch.full_like(f, math.inf)
-    cl, cu = (inf, -inf), (inf, -inf)
-    for e in range(T):
-        i = torch.tensor(e, dtype=torch.int32, device=x.device)
-        xp, ue = x[:, e], u[:, e]
-        gxn = evaluate(spec.ncost_grad, xp, th0, i)
-        ge = evaluate(spec.ecost_grad, xp, ue, th0, i)
-        vj = evaluate(spec.dyn_vjp, xp, ue, th0, i, y[:, e + 1])
-        pred = evaluate(spec.dyn, xp, ue, th0, i)
-        f = f + (evaluate(spec.ncost, xp, th0, i)
-                 + evaluate(spec.ecost, xp, ue, th0, i))
-        gx[:, e] = gxn + ge[:, :n]
-        ctx[:, e] = vj[:, :n] - y[:, e]
-        cdyn[:, e + 1] = pred - x[:, e + 1]
-        gu[:, e], ctu[:, e] = ge[:, n:], vj[:, n:]
-        for v in (gx[:, e] + ctx[:, e] + zux[:, e] - zlx[:, e]).abs() \
-                .unbind(-1):
-            stat = torch.maximum(stat, v)
-        for v in cdyn[:, e + 1].abs().unbind(-1):
-            cd = torch.maximum(cd, v)
-        for v in (gu[:, e] + ctu[:, e] + zuu[:, e] - zlu[:, e]).abs() \
-                .unbind(-1):
-            stat = torch.maximum(stat, v)
-        cl = _fold_minmax(*cl, _finite_terms(xp, zlx[:, e], lb_x, True)
-                          + _finite_terms(ue, zlu[:, e], lb_u, True))
-        cu = _fold_minmax(*cu, _finite_terms(xp, zux[:, e], ub_x, False)
-                          + _finite_terms(ue, zuu[:, e], ub_u, False))
-    res = torch.stack([stat, cd, *cl, *cu], -1)
-    f, res = _terminal_eval(spec, bounds, x, y, x0, zlx, zux, f, gx, ctx,
-                            cdyn, res)
-    return f, gx, gu, ctx, ctu, cdyn, res
+    """What the eval kernel computes, with the stage functions from the
+    generated programs over all nodes at once (node T and the root row
+    included, as in the kernel) and the objective summed in the kernel's
+    order (``lane_tree_sum``); the reductions are order-free.  Same contract
+    as ``eval_reference``."""
+    T, n = spec.horizon, spec.n
+    th0 = x.new_zeros(x.shape[0], 1, 0)
+    nodes = torch.arange(T + 1, dtype=torch.int32, device=x.device)
+    edges = nodes[:T]
+    xp, ue, yc = x[:, :-1], u, y[:, 1:]
+    gxn = evaluate(spec.ncost_grad, x, th0, nodes)
+    fn = evaluate(spec.ncost, x, th0, nodes)
+    ge = evaluate(spec.ecost_grad, xp, ue, th0, edges)
+    vj = evaluate(spec.dyn_vjp, xp, ue, th0, edges, yc)
+    pred = evaluate(spec.dyn, xp, ue, th0, edges)
+    fe = evaluate(spec.ecost, xp, ue, th0, edges)
+    zero_row = torch.zeros_like(x[:, :1])
+    gx = gxn + torch.cat([ge[..., :n], zero_row], 1)
+    ctx = torch.cat([vj[..., :n], zero_row], 1) - y
+    gu, ctu = ge[..., n:], vj[..., n:]
+    cdyn = torch.cat([(x0 - x[:, 0])[:, None], pred - x[:, 1:]], 1)
+    f = lane_tree_sum(torch.cat([fn[:, :T] + fe, fn[:, T:]], 1))
+    return f, gx, gu, ctx, ctu, cdyn, _packed_res(
+        bounds, x, u, gx, gu, ctx, ctu, cdyn, zlx, zlu, zux, zuu)
 
 
 # ---------------------------------------------------------------------------
@@ -784,14 +786,12 @@ def cuda_source(spec: FusedIterSpec, bounds: tuple) -> str:
                  dyn_jac=spec.dyn_jac, dyn_vjp=spec.dyn_vjp,
                  ncost_grad=spec.ncost_grad, ecost_grad=spec.ecost_grad,
                  nhess=spec.nhess, ehess=spec.ehess)
-    comp = (_c_comp_terms("x", ("zlx", "zux"), lb_x, ub_x)
-            + _c_comp_terms("u", ("zlu", "zuu"), lb_u, ub_u))
     lines = [
         "// Generated by sip_optimal_control_tpu_torch/ops/fused_iter.py "
         "from the",
         "// model's stage functions and their derivatives; see "
-        "csrc/fused_iter.cuh.",
-        '#include "fused_iter.cuh"', ""]
+        "csrc/fused_iter.cuh."]
+    lines += ['#include "fused_iter.cuh"', ""]
     lines += [emit_cuda(p, f"model_{name}") for name, p in progs.items()]
 
     def method(name, params, ret="void"):
@@ -800,6 +800,16 @@ def cuda_source(spec: FusedIterSpec, bounds: tuple) -> str:
                 else f"    {_call(progs[name], f'model_{name}', 'out')}")
         return [f"  static __device__ __forceinline__ {ret} {name}("
                 f"{params}) {{", body, "  }"]
+
+    def comp(name, var, z, lo, hi):
+        return [
+            f"  static __device__ __forceinline__ void {name}(",
+            f"      const float* {var}, const float* {z[0]}, "
+            f"const float* {z[1]},",
+            "      float& cl_mn, float& cl_mx, float& cu_mn, float& cu_mx) {",
+            "    using fused_iter::fold;",
+            *_c_comp_terms(var, z, lo, hi),
+            "  }"]
 
     X, U, I, Y = ("const float* x", "const float* u", "int i",
                   "const float* yc")
@@ -818,25 +828,20 @@ def cuda_source(spec: FusedIterSpec, bounds: tuple) -> str:
         *method("nhess", f"{X}, {I}, float* out"),
         # yc is unused (and not read) in the Gauss-Newton form
         *method("ehess", f"{X}, {U}, {I}, {Y}, float* out"),
-        "  // d*z of the finite bounds of node x and edge u, into the",
-        "  // lower / upper min-max accumulators",
-        "  static __device__ __forceinline__ void stage_comp(",
-        "      const float* x, const float* u, const float* zlx,",
-        "      const float* zlu, const float* zux, const float* zuu,",
-        "      float& cl_mn, float& cl_mx, float& cu_mn, float& cu_mx) {",
-        "    using fused_iter::fold;",
-        *comp,
-        "  }",
+        "  // d*z of the finite bounds of a node's x and an edge's u, into",
+        "  // the lower / upper min-max accumulators",
+        *comp("node_comp", "x", ("zlx", "zux"), lb_x, ub_x),
+        *comp("edge_comp", "u", ("zlu", "zuu"), lb_u, ub_u),
         "};",
         "",
         'extern "C" {',
-        "int fused_factor_f32(int B, const float* qt, const float* x,",
-        "                     const float* u, const float* y,",
-        "                     const float* r1x, const float* r1u,",
-        "                     const float* delta, float* vc, float* fc,",
-        "                     float* k, float* g, float* a, float* b,",
-        "                     float* vroot, void* stream) {",
-        "  return fused_iter::launch_factor<Model>(B, qt, x, u, y, r1x, r1u,",
+        "int fused_factor_f32(int B, const float* x, const float* u,",
+        "                     const float* y, const float* r1x,",
+        "                     const float* r1u, const float* delta,",
+        "                     float* vc, float* fc, float* k, float* g,",
+        "                     float* a, float* b, float* vroot,",
+        "                     void* stream) {",
+        "  return fused_iter::launch_factor<Model>(B, x, u, y, r1x, r1u,",
         "      delta, vc, fc, k, g, a, b, vroot, stream);",
         "}",
         "int fused_solve_bwd_f32(int B, const float* q, const float* c,",
@@ -862,13 +867,16 @@ def cuda_source(spec: FusedIterSpec, bounds: tuple) -> str:
         "      x, u, c, delta, vv, vc, fc, du, dx, dy, stream);",
         "}",
         "int fused_eval_f32(int B, const float* x, const float* u,",
-        "                   const float* y, const float* zlx,",
-        "                   const float* zlu, const float* zux,",
-        "                   const float* zuu, float* gx, float* gu,",
-        "                   float* ctx, float* ctu, float* cdyn, float* f,",
-        "                   float* res, void* stream) {",
-        "  return fused_iter::launch_eval<Model>(B, x, u, y, zlx, zlu, zux,",
-        "      zuu, gx, gu, ctx, ctu, cdyn, f, res, stream);",
+        "                   const float* y, const float* x0,",
+        "                   const float* zlx, const float* zlu,",
+        "                   const float* zux, const float* zuu, float* gx,",
+        "                   float* gu, float* ctx, float* ctu, float* cdyn,",
+        "                   float* f, float* res, void* stream) {",
+        "  return fused_iter::launch_eval<Model>(B, x, u, y, x0, zlx, zlu,",
+        "      zux, zuu, gx, gu, ctx, ctu, cdyn, f, res, stream);",
+        "}",
+        "void fused_launch_config(int which, int B, int* out) {",
+        "  fused_iter::launch_config<Model>(which, B, out);",
         "}",
         '}  // extern "C"',
         ""]
@@ -885,8 +893,8 @@ def build_library(spec: FusedIterSpec, bounds):
 
 # pointer arguments of each entry point (all after the int B, before the
 # stream)
-_N_PTR = {"fused_factor": 14, "fused_solve_bwd": 16, "fused_solve_fwd": 16,
-          "fused_eval": 14}
+_N_PTR = {"fused_factor": 13, "fused_solve_bwd": 16, "fused_solve_fwd": 16,
+          "fused_eval": 15}
 
 
 @functools.lru_cache(maxsize=None)
@@ -899,12 +907,24 @@ def _load(path: str):
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * (n_ptr + 1)
         fn.restype = ctypes.c_int
         out[name] = fn
+    config = lib.fused_launch_config
+    config.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    config.restype = None
+    out["config"] = config
     return out
 
 
 def _entries(spec: FusedIterSpec, bounds):
     """The model's kernel entry points, its library built at first use."""
     return _load(build_library(spec, bounds)[0])
+
+
+def launch_config(entries, name: str, B: int) -> dict:
+    """The launch configuration kernel ``name`` takes at batch B: grid and
+    block size, dynamic shared memory bytes."""
+    out = (ctypes.c_int * 3)()
+    entries["config"](KERNEL_NAMES.index(name), B, ctypes.addressof(out))
+    return dict(grid=out[0], block=out[1], smem=out[2])
 
 
 def _check(tensors: dict, shapes: dict, device) -> None:
@@ -958,7 +978,6 @@ def factor_kernel(spec, x, u, y, r1x, r1u, delta, entries=None,
     _check(dict(x=x, u=u, y=y, r1x=r1x, r1u=r1u, delta=delta),
            _iterate_shapes(spec, B), x.device)
     fns = entries or _entries(spec, bounds)
-    qt = _terminal_q(spec, x, r1x).contiguous()
     s, small = nsym(n), n < GRAM_N
     fac = FusedFactor(
         vc=_empty((T, s, B), x), fc=_empty((T, s, B), x),
@@ -967,7 +986,7 @@ def factor_kernel(spec, x, u, y, r1x, r1u, delta, entries=None,
         b=_empty((T, n * m, B), x) if small else None,
         vroot=_empty((s, B), x))
     _launch("fused_factor", fns["fused_factor"], B,
-            (qt, x, u, y, r1x, r1u, delta, *fac), x.device)
+            (x, u, y, r1x, r1u, delta, *fac), x.device)
     return fac
 
 
@@ -1020,7 +1039,7 @@ def factor_solve_kernel(spec, x, u, y, r1x, r1u, delta, q, r, c,
 def eval_kernel(spec, bounds, x, u, y, x0, zlx, zlu, zux, zuu,
                 entries=None):
     """Eval kernel wrapper (replaces JAX fused_iter.py::_eval_kernel), the
-    terminal node and root row merged outside; same contract as
+    terminal node and the root row in the kernel; same contract as
     ``eval_reference``."""
     T, n, m = spec.horizon, spec.n, spec.m
     B = x.shape[0]
@@ -1031,10 +1050,8 @@ def eval_kernel(spec, bounds, x, u, y, x0, zlx, zlu, zux, zuu,
     gu, ctu = _empty((B, T, m), x), _empty((B, T, m), x)
     f, res = _empty((B,), x), _empty((B, 6), x)
     _launch("fused_eval", fns["fused_eval"], B,
-            (x, u, y, zlx, zlu, zux, zuu, gx, gu, ctx, ctu, cdyn, f, res),
-            x.device)
-    f, res = _terminal_eval(spec, bounds, x, y, x0, zlx, zux, f, gx, ctx,
-                            cdyn, res)
+            (x, u, y, x0, zlx, zlu, zux, zuu, gx, gu, ctx, ctu, cdyn, f,
+             res), x.device)
     return f, gx, gu, ctx, ctu, cdyn, res
 
 

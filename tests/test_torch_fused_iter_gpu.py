@@ -21,6 +21,16 @@ JAX package's own bar (tests/test_fused_iter.py: 2e-5 cartpole, 5e-5
 quadrotor exact, 2e-4 chain16): at T = 7 the explicit W's cancellation
 compounds past the bar set at T = 4 (4.3e-5 on cartpole), in the twins as
 in the kernels.
+
+The redesigned factor and eval (the terminal node in the kernel, a team of
+lanes per scenario, the eval parallel over nodes) are also held at the main
+path's shape (T = 50, B = 4096) and a ragged B = 1000; the team factor
+also at chain models of other (n, m); a failed Cholesky and a NaN stay in
+their scenario; and the wrappers never reach the torch.func terminal
+pieces.  The eval's
+objective sums in another order than the twin's: it is held within
+4 (T + 1) float32 epsilons relative (both sums of T + 1 nonnegative float32
+terms), the other outputs at SOLVE_TOL.
 """
 
 import numpy as np
@@ -166,3 +176,132 @@ def test_wrappers_refuse(cuda):
                          .transpose(0, 1), *[a[k] for k in
                                              ("u", "y", "r1x", "r1u",
                                               "delta")], bounds=bounds)
+
+
+F32_EPS = float(np.finfo(np.float32).eps)
+ITERATE = ("x", "u", "y", "r1x", "r1u", "delta")
+EVAL = ("x", "u", "y", "x0", "zlx", "zlu", "zux", "zuu")
+
+
+def _check_eval(spec, bounds, a, entries, T):
+    args = [a[k] for k in EVAL]
+    got = fi.eval_kernel(spec, bounds, *args, entries=entries)
+    want = fi.eval_reference(spec, bounds, *args)
+    _close(got[1:], want[1:], SOLVE_TOL, "eval")
+    f_rel = ((got[0] - want[0]).abs() / want[0].abs()).max()
+    assert float(f_rel) <= 4 * (T + 1) * F32_EPS
+
+
+@pytest.mark.parametrize("B", [4096, 1000])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_factor_and_eval_at_main_path_shape(cuda, name, B):
+    T = 50
+    spec, bounds, _ = _problem(name, T, cuda)
+    a = _inputs(spec, B, cuda, seed=3)
+    it = [a[k] for k in ITERATE]
+    fac_t = fi.factor_reference(spec, *it)
+    entries = fi._entries(spec, bounds)
+    cfg = fi.launch_config(entries, "fused_factor", B)
+    assert cfg["grid"] * cfg["block"] >= B
+    if B == 4096:
+        assert cfg["grid"] >= 132
+        assert fi.launch_config(entries, "fused_eval", B)["grid"] >= 132
+    fac = fi.factor_kernel(spec, *it, entries=entries)
+    _close(fac, fac_t, FACTOR_TOL, "factor")
+    _check_eval(spec, bounds, a, entries, T)
+
+
+@pytest.mark.parametrize("n,m,mode", [(8, 3, "gauss_newton"),
+                                      (16, 5, "exact")])
+def test_team_factor_at_other_dims(cuda, n, m, mode):
+    """The team design where m * m exceeds the team's lanes (8, 3) and
+    n + m two columns per lane (16, 5): products and statuses as the
+    twins' on a ragged batch."""
+    T, B = 50, 1000
+    spec_m, _, _, lo, up, _ = models.synthetic_chain(
+        horizon=T, state_dim=n, control_dim=m, dtype=torch.float32,
+        device=cuda)
+    spec = fi.build_fused_iter_spec(spec_m.dynamics, spec_m.node_cost,
+                                    spec_m.edge_cost, T, n, m, mode,
+                                    torch.float32, cuda)
+    bounds = tuple(b[0].cpu().numpy() for b in (lo.u, up.u, lo.x, up.x))
+    a = _inputs(spec, B, cuda, seed=6)
+    args = [a[k] for k in ITERATE + ("q", "r", "c")]
+    entries = fi._entries(spec, bounds)
+    _close(fi.factor_kernel(spec, *args[:6], entries=entries),
+           fi.factor_reference(spec, *args[:6]), FACTOR_TOL, "factor")
+    assert torch.equal(fi.factor_solve_kernel(spec, *args,
+                                              entries=entries)[3],
+                       fi.factor_solve_plain(spec, *args)[3])
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_failed_cholesky_stays_in_its_scenario(cuda, name):
+    """A terminal Q with a large negative eigenvalue fails F's Cholesky in
+    scenario 3 only: its status, and every other scenario's products and
+    status as the twin's."""
+    T, B = 7, 300
+    spec, bounds, _ = _problem(name, T, cuda)
+    a = _inputs(spec, B, cuda, seed=4)
+    a["r1x"][3, T, 0] = -1e4
+    args = [a[k] for k in ITERATE + ("q", "r", "c")]
+    fac_t = fi.factor_reference(spec, *args[:6])
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok[3] = False
+    entries = fi._entries(spec, bounds)
+    got = fi.factor_solve_kernel(spec, *args, entries=entries)[3]
+    want = fi.factor_solve_plain(spec, *args)[3]
+    assert torch.equal(got, want)
+    assert int(got[3]) != 0 and bool((got[ok] == 0).all())
+    fac = fi.factor_kernel(spec, *args[:6], entries=entries)
+    _close([t[..., ok] for t in fac if t is not None],
+           [t[..., ok] for t in fac_t if t is not None], FACTOR_TOL,
+           "factor")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_eval_nan_stays_in_its_scenario(cuda, name):
+    T, B = 7, 300
+    spec, bounds, _ = _problem(name, T, cuda)
+    a = _inputs(spec, B, cuda, seed=5)
+    a["x"][5, 3, 1] = float("nan")
+    args = [a[k] for k in EVAL]
+    got = fi.eval_kernel(spec, bounds, *args)
+    want = fi.eval_reference(spec, bounds, *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[-1][5, :2]).all())
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok[5] = False
+    assert bool(torch.isfinite(got[-1][ok]).all())
+    _close([t[ok] for t in got[1:]], [t[ok] for t in want[1:]], SOLVE_TOL,
+           "eval")
+
+
+def test_wrappers_skip_torch_func_terminal_pieces(cuda, monkeypatch):
+    """The CUDA wrappers form the terminal node in the kernels: with
+    ``_terminal_q`` and every torch.func entry point of ops/fused_iter.py
+    made to raise, the solver's entry points still run and agree with the
+    twins (computed before)."""
+    T, B = 7, 300
+    spec, bounds, _ = _problem("cartpole", T, cuda)
+    a = _inputs(spec, B, cuda, seed=6)
+    step_args = [a[k] for k in ITERATE + ("q", "r", "c")]
+    ev_args = [a[k] for k in EVAL]
+    want_step = fi.factor_solve_plain(spec, *step_args)
+    want_ev = fi.eval_reference(spec, bounds, *ev_args)
+    step = fi.make_fused_factor_solve(spec, bounds)
+    evaluate = fi.make_fused_eval(spec, bounds)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.func terminal piece reached")
+
+    for name in ("_terminal_q", "grad", "hessian", "jacfwd", "jvp", "vmap"):
+        monkeypatch.setattr(fi, name, refuse)
+    got_step = step(*step_args)
+    got_ev = evaluate(*ev_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got_step[3], want_step[3])
+    _close(got_step[:3], want_step[:3], SOLVE_TOL, "step")
+    _close(got_ev[1:], want_ev[1:], SOLVE_TOL, "eval")
+    with pytest.raises(AssertionError, match="terminal piece"):
+        fi.factor_reference(spec, *step_args[:6])
