@@ -23,11 +23,15 @@ Phases; any failure raises and the script exits non-zero:
    rtol=atol=2e-4, solutions within 2e-3, statuses identical.  Then both
    shapes at the paths' first dual regularization delta and at delta=1e-7,
    where the bar is relative to a float64 twin (compare) and the kernel may
-   fail only where the float32 twin fails.  The probe for
+   fail only where the float32 twin fails; the chains (8, 3) and (16, 5) at
+   B=1000 (the team kernels where m * m exceeds the team's lanes).  The
+   Gram factor's and solve_bwd's launch configuration and ptxas line at
+   every shape; every Riccati kernel's device time per launch.  The probe for
    both models at B=4096 with 6 candidates, some of them infeasible: -inf
-   patterns identical, finite entries within 2e-5 relative.  The tree
-   probe the same way on robust_tree (horizon 50: 51 nodes, 50 edges) at
-   B=4096 and a ragged B=1000, with its device time per launch.  The four
+   patterns identical, finite entries within 2e-5 relative, with its device
+   time per launch.  The tree probe the same way on robust_tree (horizon
+   50: 51 nodes, 50 edges) at B=4096 and a ragged B=1000, with its device
+   time per launch.  The four
    fused kernels on cartpole, quadrotor (exact) and chain16 at B=4096,
    T=50 against their twins (FACTOR_TOL, SOLVE_TOL, statuses identical,
    the Newton step at the solver's delta under compare's rule), with the
@@ -306,6 +310,13 @@ def kernel_record(name, err, fn, twin, args, flops, source, replaces):
 # phase 3: each kernel against its twin
 # ---------------------------------------------------------------------------
 
+# each Riccati kernel's name in the profiler and in ptxas's log
+RICCATI_NAMES = {"riccati_factor": "factor_kernel",
+                 "riccati_factor_gram": "factor_gram_kernel",
+                 "riccati_solve_bwd": "solve_bwd_kernel",
+                 "riccati_solve_fwd": "solve_fwd_kernel"}
+
+
 def regularized_delta(model="cartpole"):
     """delta of a path's first factorization: the dual regularization
     gamma_reg * mu_init + reg_floor (solver/sip.py)."""
@@ -316,7 +327,9 @@ def regularized_delta(model="cartpole"):
 def check_riccati(device):
     """Riccati kernels against their twins; returns the timing records:
     cartpole shape for every kernel, chain16 shape for the solve kernels
-    under "chain16" and for the Gram factor."""
+    under "chain16" and for the Gram factor.  Logs the team kernels' launch
+    configuration and ptxas line at every shape, and each record's device
+    ms per launch."""
     import torch
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
 
@@ -332,7 +345,11 @@ def check_riccati(device):
              ("chain16_failure", 256, 16, 4, (1, 20), None),
              ("chain16_delta_path", BATCH, 16, 4, None,
               regularized_delta("chain16")),
-             ("chain16_delta_1e-7", BATCH, 16, 4, None, 1e-7)]
+             ("chain16_delta_1e-7", BATCH, 16, 4, None, 1e-7),
+             # the team kernels where m * m exceeds the team's lanes and
+             # n + m two columns per lane
+             ("chain8x3", 1000, 8, 3, None, None),
+             ("chain16x5", 1000, 16, 5, None, None)]
     records = {}
     for seed, (label, B, n, m, bad, delta) in enumerate(cases):
         data = random_chain(HORIZON, n, m, B, seed, device)
@@ -426,16 +443,31 @@ def check_riccati(device):
                               "riccati_solve_bwd": (b_err, bwd_in),
                               "riccati_solve_fwd": (w_err, fwd_in)}
 
+    lib = rc.build_library()[0]
+    for n, m in sorted(rc.SUPPORTED_SHAPES):
+        for name in rc.TEAM_KERNELS:
+            cfg = rc.launch_config(rc._library(), name, n, m, BATCH)
+            if cfg["grid"]:
+                entry = f"{RICCATI_NAMES[name]}ILi{n}ELi{m}E"
+                log(f"launch[{name} ({n}, {m})] B={BATCH}: {json.dumps(cfg)}"
+                    f"; ptxas {ptxas_line(lib, entry)}")
     out = {}
     for label, recs in records.items():
         n, m = (4, 1) if label == "main" else (16, 4)
+        dev = kernel_device_ms([lambda fn=rc.KERNELS[name][0], args=args:
+                                fn(*args) for name, (_, args) in recs.items()],
+                               "void riccati::",
+                               [RICCATI_NAMES[name] for name in recs])
         for name, (err, args) in recs.items():
             fn, twin, source, replaces = rc.KERNELS[name]
             rec = kernel_record(name, err, fn, twin, args,
                                 BATCH * HORIZON * _riccati_flops(name, n, m),
                                 source, replaces)
+            rec["device_ms"] = dev[RICCATI_NAMES[name]]
             log(f"time[{name}] B={BATCH} T={HORIZON} n={n} m={m}: kernel "
-                f"wrapper {rec['ms']:.4f} ms, plain twin "
+                f"wrapper {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} "
+                f"ms per launch (wrapper - device "
+                f"{rec['ms'] - rec['device_ms']:.4f} ms), plain twin "
                 f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']})")
             if name in out:
@@ -523,12 +555,16 @@ def check_probe(device):
         rec = kernel_record("ls_probe", err, fn, twin, args,
                             BATCH * CHUNK * probe_flops(fspec, fbounds),
                             source, replaces)
+        rec["device_ms"] = kernel_device_ms(
+            [lambda: fn(*args)], "void ls_probe::", ["probe_kernel"],
+            reps=20)["probe_kernel"]
         log(f"kernels[probe {model}] B={BATCH} chunk={CHUNK} T={HORIZON} "
             f"n={dims.max_state_dim} m={dims.max_control_dim}: max|kernel - "
             f"twin| {err:.3e} on finite entries, -inf patterns identical "
             f"({infeasible:.4f} of the candidates infeasible); kernel "
-            f"{rec['ms']:.4f} ms, plain twin {rec['plain_ms']:.4f} ms, "
-            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
+            f"launch, plain twin {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         if out is None:
             out = rec
         else:
@@ -571,7 +607,7 @@ def check_probe_tree(device):
                             source, replaces)
         rec["device_ms"] = kernel_device_ms(
             [lambda: fn(*args)], "void ls_probe_tree::",
-            reps=20)["probe_tree_kernel"]
+            ["probe_tree_kernel"], reps=20)["probe_tree_kernel"]
         log(f"time[ls_probe_tree] B={batch} chunk={CHUNK}: kernel wrapper "
             f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
             f"launch; plain twin {rec['plain_ms']:.4f} ms, bound "
@@ -703,27 +739,39 @@ def _leaves(tensors):
     return out
 
 
-def kernel_device_ms(calls, prefix, reps=5):
+def kernel_device_ms(calls, prefix, want, reps=5, tries=3):
     """The kernel's own device time per launch (ms) by torch.profiler,
-    keyed by kernel-name prefix, over `reps` rounds of `calls`."""
+    keyed by kernel-name prefix, over `reps` rounds of `calls`.  A session
+    whose trace lacks a kernel that `want` names (by the start of its
+    name) is profiled again, up to `tries` sessions: the profiler has
+    dropped a launched kernel's records from a session."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for fn in calls:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and e.key.startswith(prefix)):
-            name = e.key[len(prefix):].split("<")[0]
-            out[name] = e.self_device_time_total / e.count / 1e3
-    return out
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in calls:
+                    fn()
+            torch.cuda.synchronize()
+        out, seen = {}, []
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            seen.append(e.key[:60])
+            if e.key.startswith(prefix):
+                name = e.key[len(prefix):].split("<")[0]
+                out[name] = e.self_device_time_total / e.count / 1e3
+        missing = [w for w in want if not any(k.startswith(w) for k in out)]
+        if not missing:
+            return out
+        log(f"device time: {missing} missing from profiler session "
+            f"{attempt + 1} of {tries}; its device records: {seen}")
+    raise AssertionError(f"device time: no profiler record of {missing} "
+                         f"in {tries} sessions")
 
 
 # each fused kernel's name in the profiler and in ptxas's log (the factor:
@@ -845,7 +893,8 @@ def check_fused(device):
 
         dev = kernel_device_ms([lambda fn=fn, args=args: fn(*args)
                                 for fn, _, args, _ in cases.values()],
-                               "void fused_iter::")
+                               "void fused_iter::",
+                               [FUSED_NAMES[name] for name in cases])
         lib = fi.build_library(spec, bounds)[0]
         for name in fi.KERNEL_NAMES:
             log(f"launch[{name} {model}] B={BATCH}: "

@@ -7,7 +7,9 @@
 //   solve_fwd_kernel                          <- _solve_fwd_kernel  (:438)
 //   eval_kernel                               <- _eval_kernel       (:492)
 // and computes what they compute.  The plain PyTorch twins, the codegen
-// route and the wrappers are in ops/fused_iter.py.
+// route and the wrappers are in ops/fused_iter.py.  The team primitives
+// (team_chol, team_gram_step, team_cho_solve, team_sum), the cp.async copies
+// and the shared-memory sizing are in team.cuh, shared with csrc/riccati.cu.
 //
 // The user's stage functions and their derivatives are not known here.
 // ops/fused_iter.py::cuda_source generates, per model, a struct `Model`
@@ -114,20 +116,38 @@
 #include <math.h>
 
 #include "riccati_tiny.cuh"
+#include "team.cuh"
 
 namespace fused_iter {
 
+using riccati::cho_solve_rcp;
 using riccati::soa;
+using team::align4;
+using team::block_stride;
+using team::cp_async4;
+using team::cp_async_commit;
+using team::cp_async_wait;
+using team::kMaxSmem;
+using team::kPackN;
+using team::kScenariosPerSM;
+using team::load_col;
+using team::solve_attributes;
+using team::solve_smem;
+using team::sym_row;
+using team::team_cho_solve;
+using team::team_chol;
+using team::team_gram_step;
+using team::team_mask;
+using team::team_scale_columns;
+using team::team_sum;
+using team::tri;
 
 constexpr int kGramN = 8;  // ops/fused_iter.py: GRAM_N
-constexpr int kPackN = 6;  // ops/fused_iter.py: PACK_N
 
 template <int N>
 struct Sym {
   static constexpr int kRows = N >= kPackN ? N * (N + 1) / 2 : N * N;
 };
-
-__device__ __forceinline__ int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
 // NaN-propagating max / min, as jnp.maximum / torch.maximum
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -178,10 +198,6 @@ __host__ __device__ constexpr int largest_divisor(int t, int cap) {
   while (c > 1 && t % c != 0) --c;
   return c;
 }
-__host__ __device__ constexpr int align4(int v) { return (v + 3) / 4 * 4; }
-
-// dynamic shared memory a block may hold on sm_90
-constexpr int kMaxSmem = 232448;
 
 // The chunk of stages produced at once for S scenarios per block, and the
 // floats per scenario of the shared-memory map below (team: the products'
@@ -189,13 +205,6 @@ constexpr int kMaxSmem = 232448;
 __host__ __device__ constexpr int factor_chunk(int t, int s, int slot) {
   const int cap = kSlotBudget / (4 * s * slot);
   return largest_divisor(t, cap < kMaxChunk ? cap : kMaxChunk);
-}
-// A scenario's stride in shared memory for `used` floats of its regions:
-// team design 4 mod 8 (16-byte aligned regions, two teams of a warp on
-// distinct banks), thread design odd (a row read across the block's
-// scenarios on distinct banks).
-__host__ __device__ constexpr int block_stride(bool team, int used) {
-  return team ? (used + 7) / 8 * 8 + 4 : used | 1;
 }
 __host__ __device__ constexpr int factor_stride(bool team, int c, int row,
                                                 int slot, int out_rows,
@@ -262,51 +271,6 @@ struct FactorCfg {
                 "block's (ops/fused_iter.py: FUSED_MAX_DIM)");
   static_assert(32 % L == 0 && kBlock % 32 == 0, "teams tile warps");
 };
-
-// The lanes of the caller's team within its warp.
-template <int L>
-__device__ __forceinline__ unsigned team_mask(int tid) {
-  if constexpr (L == 32) {
-    return 0xffffffffu;
-  } else {
-    return ((1u << L) - 1u) << ((tid & 31) & ~(L - 1));
-  }
-}
-
-// Asynchronous 4-byte copies global -> shared (sm_80+), grouped per chunk.
-// Compiled for the host (tests/test_torch_fused_iter_host.py), a plain copy.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void cp_async_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
-#endif
-}
-
-// Row (i, j) of a stored symmetric / triangular block: lower-packed at
-// N >= kPackN, else row-major N x N.
-template <int N>
-__device__ __forceinline__ int sym_row(int i, int j) {
-  if constexpr (N >= kPackN) {
-    return tri(i, j);
-  } else {
-    return i * N + j;
-  }
-}
 
 // The team copies chunk rows e_lo .. e_lo + C - 1 of its scenario into raw
 // buffer `raw` (rows of a chunk are contiguous per scenario: coalesced).
@@ -570,200 +534,6 @@ factor_thread_kernel(int B, const float* __restrict__ x,
   if (lead) store_sym<N>(vroot_out, 0, b, B, V);
 }
 
-// Lower Cholesky of F = I + d V by a team, lane r holding row r of V: column
-// by column in riccati::chol's order of operations; the pivot reaches the
-// team by a shuffle, the rows by the stored factor `lf` (the F_chol output
-// rows, sym_row; zeros above the diagonal when not packed).
-template <int N, int L>
-__device__ __forceinline__ void team_chol(const float (&vrow)[N], float d,
-                                          int r, unsigned mask, float* lf) {
-  float lrow[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float t = d * vrow[j] + (r == j ? 1.0f : 0.0f);
-#pragma unroll
-    for (int k = 0; k < j; ++k) t -= lrow[k] * lf[sym_row<N>(j, k)];
-    const float dj = sqrtf(__shfl_sync(mask, t, j, L));
-    const float inv_d = 1.0f / dj;
-    lrow[j] = r == j ? dj : t * inv_d;
-    if (r < N) {
-      if (r >= j) {
-        lf[sym_row<N>(r, j)] = lrow[j];
-      } else if constexpr (N < kPackN) {
-        lf[r * N + j] = 0.0f;
-      }
-    }
-    __syncwarp(mask);
-  }
-}
-
-// N consecutive floats of shared memory into registers: float4 loads where
-// N is a multiple of 4 (the Gram form's regions are 16-byte aligned).
-template <int N>
-__device__ __forceinline__ void load_col(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-#pragma unroll
-    for (int k = 0; k < N / 4; ++k) {
-      const float4 v = p4[k];
-      out[4 * k] = v.x;
-      out[4 * k + 1] = v.y;
-      out[4 * k + 2] = v.z;
-      out[4 * k + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) out[k] = p[k];
-  }
-}
-
-// The slot's A [N][N] and B [N][M] (row-major, as dyn_jac writes them)
-// become [Ah Bh] = d^-1/2 [A B] by columns in place: column c at c * N.
-// Lane r holds columns r, r + L, ... while the team swaps them.
-template <class Model>
-__device__ __forceinline__ void team_scale_columns(float* jac, float sdi,
-                                                   int r, unsigned mask) {
-  constexpr int N = Model::N, M = Model::M, W = N + M,
-                L = FactorCfg<Model>::L, NC = (W + L - 1) / L;
-  auto at = [&](int k, int c) {
-    return c < N ? jac[k * N + c] : jac[N * N + k * M + (c - N)];
-  };
-  float col[NC][N];
-#pragma unroll
-  for (int q = 0; q < NC; ++q)
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-      col[q][k] = r + q * L < W ? at(k, r + q * L) : 0.0f;
-  __syncwarp(mask);
-#pragma unroll
-  for (int q = 0; q < NC; ++q)
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-      if (r + q * L < W) jac[(r + q * L) * N + k] = sdi * col[q][k];
-  __syncwarp(mask);
-}
-
-// The Gram-form edge step by a team (riccati_tiny.cuh::gram_core's
-// arithmetic), on ab = [Ah Bh] by columns: lane c solves column c of Z =
-// Lf^-1 [Ah Bh] (and columns c + L, ...), lane (i, j) entry G[i][j] of the
-// upper triangle (and entries i * M + j + L, ...), lane j column j of H and K, lane i row i of V_parent (entry
-// (i, j) as gram_core's (min, max) entry, so V_parent is exactly
-// symmetric).  A lane keeps its own columns in registers and reads the
-// others' from shared memory, where every lane of the team reads the same
-// column (a broadcast).
-template <class Model>
-__device__ __forceinline__ void team_gram_step(
-    const float* ab, const float* hn, const float* he, const float* r1xe,
-    const float* r1ue, int r, unsigned mask, const float* lf, float* kk,
-    float* g, float* scr, float (&vrow)[Model::N]) {
-  constexpr int N = Model::N, M = Model::M, W = N + M, NN = N * N,
-                NM = N * M, L = FactorCfg<Model>::L;
-  float* Z = scr;        // [W][N]: column c of Z at c * N
-  float* H = Z + W * N;  // [N][M]: column j of H at j * M
-  float* G = H + N * M;  // [M][M]
-  auto q_at = [&](int i, int j) {
-    return hn[i * N + j] + he[i * N + j] + (i == j ? r1xe[i] : 0.0f);
-  };
-  auto r_at = [&](int i, int j) {
-    return he[NN + NM + i * M + j] + (i == j ? r1ue[i] : 0.0f);
-  };
-#pragma unroll 1
-  for (int c = r; c < W; c += L) {
-    float b[N], z[N];
-    load_col<N>(ab + c * N, b);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = b[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s -= lf[sym_row<N>(i, k)] * z[k];
-      z[i] = s / lf[sym_row<N>(i, i)];
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) Z[c * N + i] = z[i];
-  }
-  __syncwarp(mask);
-  for (int q = r; q < M * M; q += L) {
-    const int i = q / M, j = q % M;
-    if (i <= j) {
-      const float* bi = ab + (N + i) * N;
-      const float* bj = ab + (N + j) * N;
-      const float* zi = Z + (N + i) * N;
-      const float* zj = Z + (N + j) * N;
-      float s = i == j ? r_at(i, j) : 0.5f * (r_at(i, j) + r_at(j, i));
-#pragma unroll
-      for (int k = 0; k < N; ++k) s = s + bi[k] * bj[k] - zi[k] * zj[k];
-      G[i * M + j] = s;
-      G[j * M + i] = s;
-    }
-  }
-  __syncwarp(mask);
-  float Gm[M][M], Lg[M][M];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) Gm[i][j] = G[i * M + j];
-  riccati::chol<M>(Gm, Lg);
-  if (r < N) {
-    const int j = r;
-    float aj[N], zj[N], h[M], kneg[M];
-    load_col<N>(ab + j * N, aj);
-    load_col<N>(Z + j * N, zj);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      float bi[N], zi[N];
-      load_col<N>(ab + (N + i) * N, bi);
-      load_col<N>(Z + (N + i) * N, zi);
-      float s = bi[0] * aj[0] - zi[0] * zj[0];
-#pragma unroll
-      for (int k = 1; k < N; ++k) s = s + (bi[k] * aj[k] - zi[k] * zj[k]);
-      h[i] = he[NN + j * M + i] + s;
-    }
-    riccati::cho_solve_vec<M>(Lg, h, kneg);
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      H[j * M + i] = h[i];
-      kk[i * N + j] = -kneg[i];
-    }
-  }
-  if (r == 0) {
-#pragma unroll
-    for (int i = 0; i < M; ++i)
-#pragma unroll
-      for (int j = 0; j < M; ++j) g[i * M + j] = Lg[i][j];
-  }
-  __syncwarp(mask);
-  if (r < N) {
-    const int i = r;
-    float ai[N], zi[N], ki[M], hi[M];
-    load_col<N>(ab + i * N, ai);
-    load_col<N>(Z + i * N, zi);
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      ki[k] = kk[k * N + i];
-      hi[k] = H[i * M + k];
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const int a = i < j ? i : j, c = i < j ? j : i;
-      float aj[N], zj[N];
-      load_col<N>(ab + j * N, aj);
-      load_col<N>(Z + j * N, zj);
-      float s = a == c ? q_at(a, c) : 0.5f * (q_at(a, c) + q_at(c, a));
-#pragma unroll
-      for (int k = 0; k < N; ++k) s = s + ai[k] * aj[k] - zi[k] * zj[k];
-      // K[k][a] H[k][c]: own K column against H's column j when j >= i,
-      // K's column j against own H column otherwise
-#pragma unroll
-      for (int k = 0; k < M; ++k) {
-        const float kf = j >= i ? ki[k] : kk[k * N + j];
-        const float hf = j >= i ? H[j * M + k] : hi[k];
-        s = s + kf * hf;
-      }
-      vrow[j] = s;
-    }
-  }
-}
-
 // The Gram form's stage derivatives for the whole block: the (program,
 // stage) pairs on warps, the block's scenarios on lanes, so that a warp
 // runs one program (no divergence between dyn_jac, nhess and ehess).
@@ -813,7 +583,8 @@ factor_team_kernel(int B, const float* __restrict__ x,
                    float* __restrict__ b_out, float* __restrict__ vroot_out) {
   using Cfg = FactorCfg<Model>;
   constexpr int T = Model::T, N = Model::N, M = Model::M, C = Cfg::C,
-                L = Cfg::L, NS = Cfg::NS;
+                L = Cfg::L, NS = Cfg::NS, NN = N * N,
+                NM = N * M;
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const int team = threadIdx.x / L, r = threadIdx.x % L;
@@ -880,10 +651,18 @@ factor_team_kernel(int B, const float* __restrict__ x,
         for (int j = 0; j < N; ++j)
           if (N < kPackN || j <= r) vc[sym_row<N>(r, j)] = vrow[j];
       }
-      team_scale_columns<Model>(jac, sdi, r, mask);
+      team_scale_columns<N, M, L>(jac, [&](int) { return sdi; }, r, mask);
       team_chol<N, L>(vrow, d, r, mask, lf);
-      team_gram_step<Model>(jac, hn, he, r1xe, r1ue, r, mask, lf, kk, g, scr,
-                            vrow);
+      team_gram_step<N, M, L>(
+          jac,
+          [&](int i, int j) {
+            return hn[i * N + j] + he[i * N + j] + (i == j ? r1xe[i] : 0.0f);
+          },
+          [&](int i, int j) {
+            return he[NN + NM + i * M + j] + (i == j ? r1ue[i] : 0.0f);
+          },
+          [&](int i, int j) { return he[NN + i * M + j]; }, r, mask, lf, kk,
+          g, scr, vrow);
       __syncthreads();
       write_rows<Cfg>(vc_out, e, NS, NS, smem + Cfg::kOut, b0, B);
       write_rows<Cfg>(fc_out, e, NS, NS, smem + Cfg::kOut + NS, b0, B);
@@ -906,16 +685,6 @@ factor_team_kernel(int B, const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // the solve kernels, reading the factor's products in place
 // ---------------------------------------------------------------------------
-
-// Shared memory of an SM (228 KB), and the scenarios an SM holds at once
-// so that the main path's 4096 run in one wave on 132 SMs: a solve block of
-// s scenarios may take its share of the SM's shared memory, less the 1 KB
-// the runtime keeps per block.
-constexpr int kSmemPerSM = 233472;
-constexpr int kScenariosPerSM = 32;
-__host__ __device__ constexpr int solve_smem(int s) {
-  return kSmemPerSM / (kScenariosPerSM / s) - 1024;
-}
 
 // The parts of a solve kernel's chunk buffer, in the buffer's order: the
 // [T, rows, B] operands (backward: F_chol, G_chol, K and, at n < kGramN, A
@@ -1125,77 +894,6 @@ __device__ __forceinline__ void load_symm(const float* p, float (&a)[N][N]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) a[i][j] = sym_at<N>(p, i, j);
-}
-
-// riccati::cho_solve_vec with the diagonal's reciprocals taken first, off
-// the dependent chain, and multiplied (a zero or NaN pivot still gives a
-// non-finite solution).
-template <int N>
-__device__ __forceinline__ void cho_solve_rcp(const float (&l)[N][N],
-                                              const float (&b)[N],
-                                              float (&x)[N]) {
-  float inv[N], t[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) inv[i] = 1.0f / l[i][i];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float s = b[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * t[k];
-    t[i] = s * inv[i];
-  }
-#pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float s = t[i];
-#pragma unroll
-    for (int k = i + 1; k < N; ++k) s -= l[k][i] * x[k];
-    x[i] = s * inv[i];
-  }
-}
-
-// x = F^-1 b through F's Cholesky factor `lf` (shared memory, sym_row) by a
-// team, lane i holding b_i and receiving x_i: forward then back
-// substitution, each solved entry shuffled from its lane to the team and
-// folded by the others into their partial sums (forward in
-// riccati::tri_solve_vec's order; backward from the last row up).  A lane
-// keeps its row and column of the factor in registers.
-template <int N, int L>
-__device__ __forceinline__ float team_cho_solve(const float* lf, float b,
-                                                int r, unsigned mask) {
-  const int ro = r < N ? r : 0;
-  float lrow[N], lcol[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    lrow[k] = k < ro ? lf[sym_row<N>(ro, k)] : 0.0f;
-    lcol[k] = k > ro ? lf[sym_row<N>(k, ro)] : 0.0f;
-  }
-  const float inv = 1.0f / lf[sym_row<N>(ro, ro)];
-  float acc = b, t = 0.0f;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const float tj = __shfl_sync(mask, acc * inv, j, L);
-    t = r == j ? tj : t;
-    acc -= lrow[j] * tj;
-  }
-  acc = t;
-  float x = 0.0f;
-#pragma unroll
-  for (int j = N - 1; j >= 0; --j) {
-    const float xj = __shfl_sync(mask, acc * inv, j, L);
-    x = r == j ? xj : x;
-    acc -= lcol[j] * xj;
-  }
-  return x;
-}
-
-// Each of the K partial sums summed over the team's lanes by an xor
-// butterfly; every lane receives the sums.
-template <int K, int L>
-__device__ __forceinline__ void team_sum(float (&p)[K], unsigned mask) {
-#pragma unroll
-  for (int off = L / 2; off >= 1; off /= 2)
-#pragma unroll
-    for (int i = 0; i < K; ++i) p[i] += __shfl_xor_sync(mask, p[i], off, L);
 }
 
 // One backward edge of the team design (n >= kGramN), lane r carrying v_r
@@ -1846,18 +1544,6 @@ void launch_config(int which, int B, int* out) {
     out[1] = kEvalLanes * kEvalScen;
     out[2] = 0;
   }
-}
-
-// A solve kernel's dynamic shared memory, with the SM's carveout at its
-// largest so that the blocks of 32 scenarios (solve_smem) share an SM.
-template <class Cfg, class Kernel>
-cudaError_t solve_attributes(Kernel kernel) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
 }
 
 template <class Model>

@@ -133,78 +133,30 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p, int s, int b,
   for (int i = 0; i < D; ++i) p[soa(s, i, D, b, B)] = in[i];
 }
 
-// The Gram-form Riccati edge step (pallas_riccati.py::_gram_core,
-// :197-238), for n >= 8 where the explicit W = delta^-1/2 (I - F^-1)
-// delta^-1/2 would keep F^-1, W and W A live at once.  Given the child's
-// F Cholesky Lf and per-row scalings sdi = delta^-1/2, with Ah = sdi A,
-// Bh = sdi B and Z = Lf^-1 [Ah Bh]:
-//   G = sym(R) + Bh^T Bh - Zb^T Zb,   H = M^T + Bh^T Ah - Zb^T Za,
-//   K = -G^-1 H,   V_parent = sym(Q_parent) + Ah^T Ah - Za^T Za + K^T H,
-// with G and V_parent computed on the upper triangle and mirrored, and R and
-// Q_parent read symmetrized, in the TPU kernel's order of operations.
-// Shared by every factor kernel of the Gram form.
-template <int N, int M>
-__device__ __forceinline__ void gram_core(
-    const float (&Lf)[N][N], const float (&A)[N][N], const float (&Bm)[N][M],
-    const float (&Mm)[N][M], const float (&R)[M][M], const float (&Qp)[N][N],
-    const float (&sdi)[N], float (&Lg)[M][M], float (&K)[M][N],
-    float (&Vp)[N][N]) {
-  float Ah[N][N], Bh[N][M], Za[N][N], Zb[N][M];
+// cho_solve_vec with the diagonal's reciprocals taken first, off
+// the dependent chain, and multiplied (a zero or NaN pivot still gives a
+// non-finite solution).
+template <int N>
+__device__ __forceinline__ void cho_solve_rcp(const float (&l)[N][N],
+                                              const float (&b)[N],
+                                              float (&x)[N]) {
+  float inv[N], t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) inv[i] = 1.0f / l[i][i];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    float s = b[i];
 #pragma unroll
-    for (int j = 0; j < N; ++j) Ah[i][j] = sdi[i] * A[i][j];
-#pragma unroll
-    for (int j = 0; j < M; ++j) Bh[i][j] = sdi[i] * Bm[i][j];
+    for (int k = 0; k < i; ++k) s -= l[i][k] * t[k];
+    t[i] = s * inv[i];
   }
-  tri_solve_mat<N, N, false>(Lf, Ah, Za);
-  tri_solve_mat<N, M, false>(Lf, Bh, Zb);
-
-  float G[M][M];
 #pragma unroll
-  for (int i = 0; i < M; ++i)
+  for (int i = N - 1; i >= 0; --i) {
+    float s = t[i];
 #pragma unroll
-    for (int j = i; j < M; ++j) {
-      float s = i == j ? R[i][j] : 0.5f * (R[i][j] + R[j][i]);
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        s = s + Bh[k][i] * Bh[k][j] - Zb[k][i] * Zb[k][j];
-      G[i][j] = s;
-      G[j][i] = s;
-    }
-  chol<M>(G, Lg);
-
-  float H[M][N];
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float s = Bh[0][i] * Ah[0][j] - Zb[0][i] * Za[0][j];
-#pragma unroll
-      for (int k = 1; k < N; ++k)
-        s = s + (Bh[k][i] * Ah[k][j] - Zb[k][i] * Za[k][j]);
-      H[i][j] = Mm[j][i] + s;
-    }
-  float Kneg[M][N];
-  cho_solve_mat<M, N>(Lg, H, Kneg);
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) K[i][j] = -Kneg[i][j];
-
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      float s = i == j ? Qp[i][j] : 0.5f * (Qp[i][j] + Qp[j][i]);
-#pragma unroll
-      for (int k = 0; k < N; ++k)
-        s = s + Ah[k][i] * Ah[k][j] - Za[k][i] * Za[k][j];
-#pragma unroll
-      for (int k = 0; k < M; ++k) s = s + K[k][i] * H[k][j];
-      Vp[i][j] = s;
-      Vp[j][i] = s;
-    }
+    for (int k = i + 1; k < N; ++k) s -= l[k][i] * x[k];
+    x[i] = s * inv[i];
+  }
 }
 
 // Per-row delta scalings with delta <= 0 replaced by 1, as the TPU kernels

@@ -908,7 +908,8 @@ def build_library(spec: FusedIterSpec, bounds):
     seconds spent compiling)."""
     return cuda_build.build("fused_iter",
                             cuda_source(spec, bounds_key(bounds)),
-                            ("fused_iter.cuh", "riccati_tiny.cuh"))
+                            ("fused_iter.cuh", "riccati_tiny.cuh",
+                             "team.cuh"))
 
 
 # pointer arguments of each entry point (all after the int B, before the

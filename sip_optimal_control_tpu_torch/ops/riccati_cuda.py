@@ -16,8 +16,11 @@ path:
 Each wrapper takes and returns tensors in the port's public layout
 ([B, stage, rows, cols], scenario batch leading, equal to the JAX package's
 batched layout) and has a plain PyTorch twin in this module that computes
-the same thing (``*_reference``).  A CPU tensor takes the twin; a CUDA
-tensor launches the kernel or raises — there is no fallback.  Around the
+the same thing (``*_reference``).  The Gram factor and the backward pass
+read and write that layout in place; the explicit-W factor and the forward
+rollout take a structure-of-arrays copy ([stage, rows, B], ``_soa``) and
+give their results back through ``_from_soa``.  A CPU tensor takes the
+twin; a CUDA tensor launches the kernel or raises — there is no fallback.  Around the
 kernels, ``factor_chain_cuda`` and ``solve_chain_cuda`` reproduce the
 wrapper semantics of ``_factor_chain_pallas_batched`` (pallas_riccati.py
 :295-425: the Gram form at n >= GRAM_N; F_chol, sqrt(delta), statuses and,
@@ -48,7 +51,7 @@ from .lqr import (LQRData, LQRFactorization, LQRSolution, _factor_F,
 # GRAM_SHAPES); the factor takes the Gram form at n >= GRAM_N, as
 # pallas_riccati.py:351 does.
 SUPPORTED_SHAPES = frozenset({(4, 1), (6, 2), (2, 1), (3, 1), (3, 2),
-                              (16, 4)})
+                              (16, 4), (8, 3), (16, 5)})
 GRAM_N = 8
 
 # Launches per kernel; each wrapper adds one where it launches its kernel.
@@ -71,7 +74,7 @@ def build_library() -> Tuple[str, float]:
     """Compile csrc/riccati.cu unless a build of the same sources exists.
     Returns (path, seconds spent compiling)."""
     return cuda_build.build_file("riccati", "riccati.cu",
-                                 ("riccati_tiny.cuh",))
+                                 ("riccati_tiny.cuh", "team.cuh"))
 
 
 def _library():
@@ -87,12 +90,29 @@ def _library():
             fn = getattr(lib, name)
             fn.argtypes = [i32] * 4 + [ptr] * n_ptr + [ptr]
             fn.restype = i32
+        lib.riccati_launch_config.argtypes = [i32] * 4 + [ptr]
+        lib.riccati_launch_config.restype = None
         _lib = lib
     return _lib
 
 
+# the team kernels, in riccati_launch_config's order
+TEAM_KERNELS = ("riccati_factor_gram", "riccati_solve_bwd")
+
+
+def launch_config(lib, name: str, n: int, m: int, B: int) -> dict:
+    """The launch configuration team kernel ``name`` takes at (n, m) and
+    batch B in the library ``lib``: grid and block size, dynamic shared
+    memory bytes."""
+    out = (ctypes.c_int * 3)()
+    lib.riccati_launch_config(TEAM_KERNELS.index(name), n, m, B,
+                              ctypes.addressof(out))
+    return dict(grid=out[0], block=out[1], smem=out[2])
+
+
 # ---------------------------------------------------------------------------
-# launch plumbing: checks and the [B, S, ...] <-> [S, rows, B] layouts
+# launch plumbing: checks and the [B, S, ...] <-> [S, rows, B] layouts of
+# the explicit-W factor and the forward rollout
 # ---------------------------------------------------------------------------
 
 def _check(tensors, shapes, device) -> None:
@@ -217,8 +237,8 @@ def _mirror_upper(a):
 
 
 def _gram_core(Lf, A, B, M, R, Qp, sdi):
-    """Plain twin of csrc/riccati_tiny.cuh::gram_core (pallas_riccati.py::
-    _gram_core): returns (G_chol, K, V_parent)."""
+    """Plain twin of the Gram-form edge step (csrc/team.cuh::team_gram_step;
+    pallas_riccati.py::_gram_core): returns (G_chol, K, V_parent)."""
     Ah = sdi[..., :, None] * A
     Bh = sdi[..., :, None] * B
     Za = tri_solve(Lf, Ah)
@@ -259,15 +279,12 @@ def factor_gram_kernel(Q, delta, A, B, M, R):
                                   "factor (factor_kernel)")
     if not _route(Q.device, n, m):
         return factor_gram_kernel_reference(Q, delta, A, B, M, R)
-    ins = [_soa(t) for t in (Q, delta, A, B, M, R)]
-    outs = [torch.empty((T_h, rows, Bsz), dtype=torch.float32,
+    outs = [torch.empty((Bsz, T_h) + tail, dtype=torch.float32,
                         device=Q.device)
-            for rows in (n * n, m * n, m * m)]
+            for tail in ((n, n), (m, n), (m, m))]
     _launch("riccati_factor_gram", _library().riccati_factor_gram_f32, n, m,
-            T_h, Bsz, ins + outs, Q.device)
-    v_par, K, G = outs
-    return (_from_soa(v_par, (n, n)), _from_soa(K, (m, n)),
-            _from_soa(G, (m, m)))
+            T_h, Bsz, [Q, delta, A, B, M, R] + outs, Q.device)
+    return tuple(outs)
 
 
 def _finish_factor(data: LQRData, v_par, W, K, G_chol) -> LQRFactorization:
@@ -353,12 +370,11 @@ def solve_bwd_kernel(q, r, c, delta, F_chol, G_chol, K, A, B):
     if not _route(q.device, n, m):
         return solve_bwd_kernel_reference(q, r, c, delta, F_chol, G_chol, K,
                                           A, B)
-    ins = [_soa(t) for t in (q, r, c, delta, F_chol, G_chol, K, A, B)]
-    outs = [torch.empty((T_h, rows, Bsz), dtype=torch.float32,
+    outs = [torch.empty((Bsz, T_h, rows), dtype=torch.float32,
                         device=q.device) for rows in (m, n)]
     _launch("riccati_solve_bwd", _library().riccati_solve_bwd_f32, n, m, T_h,
-            Bsz, ins + outs, q.device)
-    return _from_soa(outs[0], (m,)), _from_soa(outs[1], (n,))
+            Bsz, [q, r, c, delta, F_chol, G_chol, K, A, B] + outs, q.device)
+    return tuple(outs)
 
 
 def solve_fwd_kernel_reference(x_root, k, K, A, B, c, delta, v, V, F_chol):

@@ -1,12 +1,14 @@
 // A host stand-in for the CUDA runtime, enough to compile and run
-// sip_optimal_control_tpu_torch/csrc/fused_iter.cuh with a C++20 host
-// compiler (tests/test_torch_fused_iter_host.py).  Every GPU thread of a
+// sip_optimal_control_tpu_torch/csrc/fused_iter.cuh and csrc/riccati.cu
+// with a C++20 host compiler (tests/test_torch_fused_iter_host.py,
+// tests/test_torch_riccati_host.py).  Every GPU thread of a
 // block is an OS thread and blocks run one after another; __syncthreads
 // and __syncwarp are barriers of the block and of the warp (the kernels
 // call __syncwarp at points every lane of the warp reaches), the shuffles
-// exchange through an array of the warp.  Dynamic shared memory is
-// fused_iter::smem4, defined by the test's translation unit; launches are
-// rewritten by the test into emu_launch calls.
+// exchange through an array of the warp.  Dynamic shared memory is the
+// kernels' namespace's smem4 (fused_iter::smem4, riccati::smem4), defined by
+// the test's translation unit; launches are rewritten by the test into
+// emu_launch calls.
 #pragma once
 #include <barrier>
 #include <math.h>
@@ -72,6 +74,7 @@ struct EmuCfg {
   unsigned grid, block;
   EmuCfg(dim3 g, int b, int, cudaStream_t) : grid(g.x), block(b) {}
   EmuCfg(int g, int b, int, cudaStream_t) : grid(g), block(b) {}
+  EmuCfg(dim3 g, dim3 b, int, cudaStream_t) : grid(g.x), block(b.x) {}
 };
 template <class K, class... A>
 void emu_launch(K kernel, EmuCfg cfg, A... args) {

@@ -113,7 +113,8 @@ def _build(root, name):
     out = root / name
     out.mkdir()
     (out / "fused_iter.cuh").write_text(_host_header())
-    shutil.copy(os.path.join(cuda_build.CSRC, "riccati_tiny.cuh"), out)
+    for header in ("riccati_tiny.cuh", "team.cuh"):
+        shutil.copy(os.path.join(cuda_build.CSRC, header), out)
     src = fi.cuda_source(spec, bounds_key(bounds))
     src += ("\nnamespace fused_iter {\nalignas(16) float4 smem4[1 << 15];"
             "\n}\n")
