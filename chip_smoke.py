@@ -24,9 +24,9 @@ Phases; any failure raises and the script exits non-zero:
    shapes at the paths' first dual regularization delta and at delta=1e-7,
    where the bar is relative to a float64 twin (compare) and the kernel may
    fail only where the float32 twin fails; the chains (8, 3) and (16, 5) at
-   B=1000 (the team kernels where m * m exceeds the team's lanes).  The
-   Gram factor's and solve_bwd's launch configuration and ptxas line at
-   every shape; every Riccati kernel's device time per launch.  The probe for
+   B=1000 (the team kernels where m * m exceeds the team's lanes).  Every
+   Riccati kernel's launch configuration and ptxas line at every shape it
+   is instantiated at, and its device time per launch.  The probe for
    both models at B=4096 with 6 candidates, some of them infeasible: -inf
    patterns identical, finite entries within 2e-5 relative, with its device
    time per launch.  The tree probe the same way on robust_tree (horizon
@@ -327,9 +327,9 @@ def regularized_delta(model="cartpole"):
 def check_riccati(device):
     """Riccati kernels against their twins; returns the timing records:
     cartpole shape for every kernel, chain16 shape for the solve kernels
-    under "chain16" and for the Gram factor.  Logs the team kernels' launch
-    configuration and ptxas line at every shape, and each record's device
-    ms per launch."""
+    under "chain16" and for the Gram factor.  Logs every kernel's launch
+    configuration and ptxas line at every shape it is instantiated at, and
+    each record's device ms per launch."""
     import torch
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
 

@@ -67,6 +67,30 @@ __device__ __forceinline__ void cho_solve_mat(const float (&l)[N][N],
   tri_solve_mat<N, C, true>(l, t, x);
 }
 
+// F^-1 from F's Cholesky factor: cho_solve_mat on the identity with the
+// forward solve's known zeros (row i < column j) skipped; for a finite
+// factor the same values in the same order of operations (a NaN pivot
+// still makes every entry NaN).
+template <int N>
+__device__ __forceinline__ void cho_inverse(const float (&l)[N][N],
+                                            float (&x)[N][N]) {
+  float t[N][N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < j) {
+        t[i][j] = 0.0f;
+        continue;
+      }
+      float s = i == j ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = j; k < i; ++k) s -= l[i][k] * t[k][j];
+      t[i][j] = s / l[i][i];
+    }
+  tri_solve_mat<N, N, true>(l, t, x);
+}
+
 template <int N, bool TRANSPOSE>
 __device__ __forceinline__ void tri_solve_vec(const float (&l)[N][N],
                                               const float (&b)[N],
@@ -96,18 +120,10 @@ __device__ __forceinline__ void cho_solve_vec(const float (&l)[N][N],
 }
 
 // Structure-of-arrays access: stage s, entry r of a [S, rows, B] tensor,
-// scenario b.  Neighbouring threads read neighbouring addresses.
+// scenario b.  Neighbouring threads read neighbouring addresses (the fused
+// kernels' layout, csrc/fused_iter.cuh).
 __device__ __forceinline__ size_t soa(int s, int r, int rows, int b, int B) {
   return (static_cast<size_t>(s) * rows + r) * B + b;
-}
-
-template <int R, int C>
-__device__ __forceinline__ void load_mat(const float* __restrict__ p, int s,
-                                         int b, int B, float (&out)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) out[i][j] = p[soa(s, i * C + j, R * C, b, B)];
 }
 
 template <int R, int C>
@@ -117,20 +133,6 @@ __device__ __forceinline__ void store_mat(float* __restrict__ p, int s, int b,
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < C; ++j) p[soa(s, i * C + j, R * C, b, B)] = in[i][j];
-}
-
-template <int D>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, int s,
-                                         int b, int B, float (&out)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) out[i] = p[soa(s, i, D, b, B)];
-}
-
-template <int D>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, int s, int b,
-                                          int B, const float (&in)[D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i) p[soa(s, i, D, b, B)] = in[i];
 }
 
 // cho_solve_vec with the diagonal's reciprocals taken first, off

@@ -2,8 +2,8 @@
 // one scenario of a batched chain recursion and shares its n x n algebra.
 //
 // Included by csrc/fused_iter.cuh (the fused factor and solve kernels) and
-// csrc/riccati.cu (the standard iteration's Gram-form factor and backward
-// vector pass): the Cholesky of F = I + d V column by column with the pivot
+// csrc/riccati.cu (the standard iteration's four Riccati kernels): the
+// Cholesky of F = I + d V column by column with the pivot
 // shuffled to the team (team_chol), the Gram-form edge step with the
 // Riccati operands read through accessors (team_gram_step), the triangular
 // solves of a vector through a stored factor (team_cho_solve), butterflies
@@ -165,8 +165,9 @@ __device__ __forceinline__ void team_chol(const float (&vrow)[N], float d,
   }
 }
 
-// N consecutive floats of shared memory into registers: float4 loads where
-// N is a multiple of 4 (the Gram form's regions are 16-byte aligned).
+// N consecutive floats into registers: float4 loads where N is a multiple
+// of 4 (`p` then 16-byte aligned: the Gram form's regions in shared memory
+// are; riccati.cu's load_row checks a row of device memory first).
 template <int N>
 __device__ __forceinline__ void load_col(const float* p, float (&out)[N]) {
   if constexpr (N % 4 == 0) {

@@ -15,12 +15,10 @@ path:
 
 Each wrapper takes and returns tensors in the port's public layout
 ([B, stage, rows, cols], scenario batch leading, equal to the JAX package's
-batched layout) and has a plain PyTorch twin in this module that computes
-the same thing (``*_reference``).  The Gram factor and the backward pass
-read and write that layout in place; the explicit-W factor and the forward
-rollout take a structure-of-arrays copy ([stage, rows, B], ``_soa``) and
-give their results back through ``_from_soa``.  A CPU tensor takes the
-twin; a CUDA tensor launches the kernel or raises — there is no fallback.  Around the
+batched layout), which the kernels read and write in place, and has a plain
+PyTorch twin in this module that computes the same thing (``*_reference``).
+A CPU tensor takes the twin; a CUDA tensor launches the kernel or raises —
+there is no fallback.  Around the
 kernels, ``factor_chain_cuda`` and ``solve_chain_cuda`` reproduce the
 wrapper semantics of ``_factor_chain_pallas_batched`` (pallas_riccati.py
 :295-425: the Gram form at n >= GRAM_N; F_chol, sqrt(delta), statuses and,
@@ -96,14 +94,17 @@ def _library():
     return _lib
 
 
-# the team kernels, in riccati_launch_config's order
-TEAM_KERNELS = ("riccati_factor_gram", "riccati_solve_bwd")
+# the kernels, in riccati_launch_config's order (all four of the team
+# design: a team of lanes per scenario, one computing lane below GRAM_N)
+TEAM_KERNELS = ("riccati_factor", "riccati_factor_gram", "riccati_solve_bwd",
+                "riccati_solve_fwd")
 
 
 def launch_config(lib, name: str, n: int, m: int, B: int) -> dict:
-    """The launch configuration team kernel ``name`` takes at (n, m) and
-    batch B in the library ``lib``: grid and block size, dynamic shared
-    memory bytes."""
+    """The launch configuration kernel ``name`` takes at (n, m) and batch B
+    in the library ``lib``: grid and block size, dynamic shared memory
+    bytes; zeros where the library has no such kernel (a factor at the
+    other form's shapes)."""
     out = (ctypes.c_int * 3)()
     lib.riccati_launch_config(TEAM_KERNELS.index(name), n, m, B,
                               ctypes.addressof(out))
@@ -111,8 +112,7 @@ def launch_config(lib, name: str, n: int, m: int, B: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# launch plumbing: checks and the [B, S, ...] <-> [S, rows, B] layouts of
-# the explicit-W factor and the forward rollout
+# launch plumbing
 # ---------------------------------------------------------------------------
 
 def _check(tensors, shapes, device) -> None:
@@ -150,17 +150,6 @@ def _route(device: torch.device, n: int, m: int) -> bool:
     return True
 
 
-def _soa(t: torch.Tensor) -> torch.Tensor:
-    """[B, S, ...] -> [S, rows, B], scenario index contiguous."""
-    return t.reshape(t.shape[0], t.shape[1], -1).permute(1, 2, 0).contiguous()
-
-
-def _from_soa(t: torch.Tensor, tail) -> torch.Tensor:
-    """[S, rows, B] -> contiguous [B, S, *tail]."""
-    return t.permute(2, 0, 1).reshape(t.shape[2], t.shape[0],
-                                      *tail).contiguous()
-
-
 def _launch(name: str, fn, n, m, T, Bsz, args, device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -168,6 +157,17 @@ def _launch(name: str, fn, n, m, T, Bsz, args, device) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
+
+
+def _run(name: str, n: int, m: int, T_h: int, ins, tails):
+    """Launches kernel ``name`` on ``ins``; returns its float32 outputs,
+    one [B, T_h, *tail] tensor per entry of ``tails``."""
+    device, Bsz = ins[0].device, ins[0].shape[0]
+    outs = [torch.empty((Bsz, T_h) + tail, dtype=torch.float32,
+                        device=device) for tail in tails]
+    _launch(name, getattr(_library(), name + "_f32"), n, m, T_h, Bsz,
+            list(ins) + outs, device)
+    return tuple(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -209,21 +209,14 @@ def _check_factor(Q, delta, A, B, M, R):
 def factor_kernel(Q, delta, A, B, M, R):
     """Factor kernel wrapper (replaces pallas_riccati.py::_factor_kernel);
     same contract as ``factor_kernel_reference``.  n < GRAM_N."""
-    Bsz, T_h, n, m = _check_factor(Q, delta, A, B, M, R)
+    _, T_h, n, m = _check_factor(Q, delta, A, B, M, R)
     if n >= GRAM_N:
         raise NotImplementedError(f"n = {n} >= {GRAM_N} takes the Gram-form "
                                   "factor (factor_gram_kernel)")
     if not _route(Q.device, n, m):
         return factor_kernel_reference(Q, delta, A, B, M, R)
-    ins = [_soa(t) for t in (Q, delta, A, B, M, R)]
-    outs = [torch.empty((T_h, rows, Bsz), dtype=torch.float32,
-                        device=Q.device)
-            for rows in (n * n, n * n, m * n, m * m)]
-    _launch("riccati_factor", _library().riccati_factor_f32, n, m, T_h, Bsz,
-            ins + outs, Q.device)
-    v_par, W, K, G = outs
-    return (_from_soa(v_par, (n, n)), _from_soa(W, (n, n)),
-            _from_soa(K, (m, n)), _from_soa(G, (m, m)))
+    return _run("riccati_factor", n, m, T_h, (Q, delta, A, B, M, R),
+                ((n, n), (n, n), (m, n), (m, m)))
 
 
 # ---------------------------------------------------------------------------
@@ -273,18 +266,14 @@ def factor_gram_kernel(Q, delta, A, B, M, R):
     """Gram-form factor kernel wrapper (replaces
     pallas_riccati.py::_factor_kernel_gram); same contract as
     ``factor_gram_kernel_reference``.  n >= GRAM_N."""
-    Bsz, T_h, n, m = _check_factor(Q, delta, A, B, M, R)
+    _, T_h, n, m = _check_factor(Q, delta, A, B, M, R)
     if n < GRAM_N:
         raise NotImplementedError(f"n = {n} < {GRAM_N} takes the explicit-W "
                                   "factor (factor_kernel)")
     if not _route(Q.device, n, m):
         return factor_gram_kernel_reference(Q, delta, A, B, M, R)
-    outs = [torch.empty((Bsz, T_h) + tail, dtype=torch.float32,
-                        device=Q.device)
-            for tail in ((n, n), (m, n), (m, m))]
-    _launch("riccati_factor_gram", _library().riccati_factor_gram_f32, n, m,
-            T_h, Bsz, [Q, delta, A, B, M, R] + outs, Q.device)
-    return tuple(outs)
+    return _run("riccati_factor_gram", n, m, T_h, (Q, delta, A, B, M, R),
+                ((n, n), (m, n), (m, m)))
 
 
 def _finish_factor(data: LQRData, v_par, W, K, G_chol) -> LQRFactorization:
@@ -370,11 +359,8 @@ def solve_bwd_kernel(q, r, c, delta, F_chol, G_chol, K, A, B):
     if not _route(q.device, n, m):
         return solve_bwd_kernel_reference(q, r, c, delta, F_chol, G_chol, K,
                                           A, B)
-    outs = [torch.empty((Bsz, T_h, rows), dtype=torch.float32,
-                        device=q.device) for rows in (m, n)]
-    _launch("riccati_solve_bwd", _library().riccati_solve_bwd_f32, n, m, T_h,
-            Bsz, [q, r, c, delta, F_chol, G_chol, K, A, B] + outs, q.device)
-    return tuple(outs)
+    return _run("riccati_solve_bwd", n, m, T_h,
+                (q, r, c, delta, F_chol, G_chol, K, A, B), ((m,), (n,)))
 
 
 def solve_fwd_kernel_reference(x_root, k, K, A, B, c, delta, v, V, F_chol):
@@ -413,14 +399,9 @@ def solve_fwd_kernel(x_root, k, K, A, B, c, delta, v, V, F_chol):
     if not _route(x_root.device, n, m):
         return solve_fwd_kernel_reference(x_root, k, K, A, B, c, delta, v, V,
                                           F_chol)
-    ins = [x_root.t().contiguous()[None]] + [
-        _soa(t) for t in (k, K, A, B, c, delta, v, V, F_chol)]
-    outs = [torch.empty((T_h, rows, Bsz), dtype=torch.float32,
-                        device=x_root.device) for rows in (m, n, n)]
-    _launch("riccati_solve_fwd", _library().riccati_solve_fwd_f32, n, m, T_h,
-            Bsz, ins + outs, x_root.device)
-    return (_from_soa(outs[0], (m,)), _from_soa(outs[1], (n,)),
-            _from_soa(outs[2], (n,)))
+    return _run("riccati_solve_fwd", n, m, T_h,
+                (x_root, k, K, A, B, c, delta, v, V, F_chol),
+                ((m,), (n,), (n,)))
 
 
 def _solve_chain_via(data: LQRData, fact: LQRFactorization, bwd,

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: the Riccati kernels (explicit-W and Gram
 factor, solve backward and forward) and the fused line-search probe, each
-wrapper against its plain twin, launch counting, and the wrappers' refusals.  Needs a CUDA GPU and skips
+wrapper against its plain twin, launch counting, a failed scenario or a NaN
+kept to its scenario, and the wrappers' refusals.  Needs a CUDA GPU and skips
 without one; imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu \
@@ -115,6 +116,35 @@ def test_gram_failure_status_isolated_on_card(cuda):
     want = rc.factor_chain_reference(data).status
     assert torch.equal(got, want)
     assert int(got[7]) != 0 and int((got != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("n,m", [(4, 1), (16, 4)])
+def test_rollout_nan_isolated_on_card(cuda, n, m):
+    """A NaN in one scenario's F_chol at node 4 reaches that scenario's x
+    from edge 3 on and no other scenario's (one computing lane per scenario
+    at n = 4, a team of lanes at n = 16)."""
+    T, batch = 7, 300
+    data = _chain(T, n, m, batch, cuda, seed=5)
+    fact = rc.factor_chain_reference(data)
+    k, v_par = rc.solve_bwd_kernel_reference(
+        data.q, data.r, data.c, data.delta, fact.F_chol, fact.G_chol, fact.K,
+        data.A, data.B)
+    F_chol = fact.F_chol.clone()
+    F_chol[9, 4, n - 1, 0] = float("nan")
+    x_root = torch.randn(batch, n, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(0))
+    args = (x_root, k, fact.K, data.A, data.B, data.c, data.delta,
+            torch.cat([v_par, data.q[:, -1:]], dim=1), fact.V, F_chol)
+    got = rc.solve_fwd_kernel(*args)
+    want = rc.solve_fwd_kernel_reference(*args)
+    x = got[1]
+    assert bool(torch.isfinite(x[9, :3]).all())
+    assert bool(torch.isnan(x[9, 3:]).any(dim=-1).all())
+    keep = torch.arange(batch, device=cuda) != 9
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a[keep]).all())
+        torch.testing.assert_close(a[keep], b[keep], rtol=SOLVE_TOL,
+                                   atol=SOLVE_TOL)
 
 
 @pytest.mark.parametrize("name", ["cartpole_swingup", "planar_quadrotor",

@@ -11,8 +11,10 @@ layouts are checked too.  That holds, without a GPU, all four kernels
 (explicit-W factor, Gram factor, backward pass, forward rollout) at every
 instantiated (n, m) against their plain twins at T = 50 on a ragged batch
 (B = 37: a partial block, teams past the batch), statuses identical; a
-failed G Cholesky and a NaN confined to their scenario; and the team
-kernels' launch configuration at the main path's batch.  Host float
+failed G Cholesky and a NaN confined to their scenario (a NaN in q for the
+backward pass, in F_chol for the forward rollout, in Q for the factor of
+each form); and every kernel's launch configuration at the main path's
+batch.  Host float
 arithmetic contracts no multiply-adds, the card's does: the bars are
 chip_smoke.py's (factor products 2e-4, solutions 2e-3).  Skips without a
 C++20 compiler.
@@ -52,7 +54,7 @@ def _host_source() -> str:
         text = fh.read()
     out, n = re.subn(r"([\w:]+(?:<[^<>]*>)?)<<<([\s\S]*?)>>>\(",
                      r"emu_launch(\1, EmuCfg(\2), ", text)
-    assert n == 2
+    assert n == 1  # every kernel launches through launch_team
     return out + ("\nnamespace riccati {\nalignas(16) float4 smem4[1 << 15];"
                   "\n}\n")
 
@@ -219,20 +221,79 @@ def test_nan_stays_in_its_scenario(host_kernels, n, m):
     _close((k, v), want, SOLVE_TOL, "solve_bwd", keep)
 
 
+@pytest.mark.parametrize("n,m", DESIGNS)
+def test_rollout_nan_stays_in_its_scenario(host_kernels, n, m):
+    """A NaN in one scenario's F_chol at node 21 reaches that scenario's x
+    and y from edge 20 on, and its u from edge 21 on, and no other
+    scenario's; the other scenarios match the twin."""
+    data = _chain(n, m, seed=300 + n)
+    fact = rc.factor_chain_reference(data)
+    k, v_par = rc.solve_bwd_kernel_reference(*_bwd_args(data, fact))
+    F_chol = fact.F_chol.clone()
+    F_chol[9, 21, n - 1, 0] = float("nan")
+    x_root = torch.as_tensor(
+        np.random.default_rng(1).standard_normal((B, n)), dtype=torch.float32)
+    fwd_in = (x_root, k, fact.K, data.A, data.B, data.c, data.delta,
+              torch.cat([v_par, data.q[:, -1:]], dim=1), fact.V, F_chol)
+    u, x, y = rc.solve_fwd_kernel(*fwd_in)
+    want = rc.solve_fwd_kernel_reference(*fwd_in)
+    for a in (x, y):
+        assert bool(torch.isfinite(a[9, :20]).all())
+        assert bool(torch.isnan(a[9, 20:]).any(dim=-1).all())
+    assert bool(torch.isfinite(u[9, :21]).all())
+    assert bool(torch.isnan(u[9, 21:]).any(dim=-1).all())
+    keep = torch.arange(B) != 9
+    assert all(bool(torch.isfinite(a[keep]).all()) for a in (u, x, y))
+    _close((u, x, y), want, SOLVE_TOL, "solve_fwd", keep)
+    _close((u[9, :20], x[9, :20], y[9, :20]),
+           (want[0][9, :20], want[1][9, :20], want[2][9, :20]), SOLVE_TOL,
+           "solve_fwd before the NaN")
+
+
+@pytest.mark.parametrize("n,m", DESIGNS)
+def test_factor_nan_stays_in_its_scenario(host_kernels, n, m):
+    """A NaN in one scenario's Q at node 30 reaches, through the factor of
+    the shape's form (explicit W at n < 8, Gram form at n >= 8), that
+    scenario's products from edge 30 down and no other scenario's; edges
+    past it and every other scenario match the twin."""
+    data = _chain(n, m, seed=400 + n)
+    Q = data.Q.clone()
+    Q[11, 30, 0, 0] = float("nan")
+    args = (Q, data.delta, data.A, data.B, data.M, data.R)
+    name = "riccati_factor_gram" if n >= rc.GRAM_N else "riccati_factor"
+    wrapper, twin = rc.KERNELS[name][:2]
+    got, want = wrapper(*args), twin(*args)
+    v_par = got[0]
+    assert bool(torch.isnan(v_par[11, :31]).any(dim=(-2, -1)).all())
+    assert bool(torch.isnan(got[-1][11, :30]).any(dim=(-2, -1)).all())
+    keep = torch.arange(B) != 11
+    for a in got:
+        assert bool(torch.isfinite(a[keep]).all())
+        assert bool(torch.isfinite(a[11, 31:]).all())
+    _close(got, want, FACTOR_TOL, name, keep)
+    _close([a[11, 31:] for a in got], [a[11, 31:] for a in want],
+           FACTOR_TOL, f"{name} past the NaN")
+
+
 @pytest.mark.parametrize("n,m", SHAPES)
 def test_launch_config_fills_the_card(host_kernels, n, m):
-    """At the main path's batch of 4096 the team kernels launch 16
-    scenarios per block, at least one block per SM of an H100 (132),
-    within a block's 227 KB of shared memory; at chain16 two blocks share
-    an SM (one wave), as the block's share of the SM allows."""
-    names = rc.TEAM_KERNELS if n >= rc.GRAM_N else rc.TEAM_KERNELS[1:]
-    for name in names:
+    """At the main path's batch of 4096 each kernel of the shape (the
+    factor of its form, both solves) launches 16 scenarios per block, 256
+    blocks, at least one per SM of an H100 (132), within a block's 227 KB
+    of shared memory; at cartpole and chain16 two blocks share an SM (one
+    wave), as the block's share of the SM allows.  The factor of the other
+    form reports zeros."""
+    gram = n >= rc.GRAM_N
+    other = "riccati_factor" if gram else "riccati_factor_gram"
+    for name in rc.TEAM_KERNELS:
         cfg = rc.launch_config(host_kernels, name, n, m, 4096)
+        if name == other:
+            assert cfg == dict(grid=0, block=0, smem=0)
+            continue
         assert cfg["grid"] == 4096 // 16 and cfg["grid"] >= 132
-        assert cfg["block"] % 32 == 0 and cfg["smem"] <= 232448
+        assert cfg["block"] == 16 * (4 if n < rc.GRAM_N else 16 if n > 8
+                                     else 8)
+        assert cfg["smem"] <= 232448
         if (n, m) in ((16, 4), (4, 1)):
             assert 2 * (cfg["smem"] + 1024) <= 233472
         assert rc.launch_config(host_kernels, name, n, m, 1)["grid"] == 1
-    if n < rc.GRAM_N:
-        assert rc.launch_config(host_kernels, "riccati_factor_gram", n, m,
-                                4096) == dict(grid=0, block=0, smem=0)
