@@ -27,8 +27,10 @@ Phases; any failure raises and the script exits non-zero:
    B=1000 (the team kernels where m * m exceeds the team's lanes).  Every
    Riccati kernel's launch configuration and ptxas line at every shape it
    is instantiated at, and its device time per launch.  The probe for
-   both models at B=4096 with 6 candidates, some of them infeasible: -inf
-   patterns identical, finite entries within 2e-5 relative, with its device
+   both models at B=4096 with 6 candidates, some of them infeasible, the
+   candidates contiguous and as the solver's transposed view, and at a
+   ragged B=1000 (transposed): -inf patterns identical, finite entries
+   within 2e-5 relative; its launch configuration, ptxas line and device
    time per launch.  The tree probe the same way on robust_tree (horizon
    50: 51 nodes, 50 edges) at B=4096 and a ragged B=1000, with its device
    time per launch.  The four
@@ -532,8 +534,11 @@ def probe_match(label, got, want):
 
 
 def check_probe(device):
-    """The probe kernel against its twin for both paths' models; returns
-    the timing record (cartpole, with chain16's under "chain16")."""
+    """The probe kernel against its twin for both paths' models at the main
+    path's batch (the candidates contiguous, then as the solver's
+    transposed view) and at a ragged batch (B=1000, transposed); logs its
+    launch configuration and ptxas line.  Returns the timing record
+    (cartpole, with chain16's under "chain16")."""
     import torch
     from sip_optimal_control_tpu_torch.ops import ls_probe
 
@@ -541,30 +546,45 @@ def check_probe(device):
     for seed, model in enumerate(CHAIN_PATHS):
         prob, dims = path_problem(model, device)
         fspec, fbounds, _ = prob.fused_ls
-        args = probe_inputs(dims, BATCH, seed, device)
         fn = ls_probe.make_fused_probe(fspec, fbounds)
 
         def twin(*a):
             return ls_probe.probe_reference(fspec, fbounds, *a)
 
-        got, want = fn(*args), twin(*args)
-        torch.cuda.synchronize()
-        err = probe_match(f"probe[{model}]", got, want)
-        infeasible = float(torch.isneginf(want[2]).float().mean())
+        for case, (batch, solver_view) in enumerate(
+                ((BATCH, False), (BATCH, True), (1000, True))):
+            args = probe_inputs(dims, batch, seed + 10 * case, device)
+            if solver_view:            # solver/sip.py, solver/fused_chain.py
+                args = args[:5] + (args[5].t().contiguous().t(),)
+            got, want = fn(*args), twin(*args)
+            torch.cuda.synchronize()
+            layout = "transposed" if solver_view else "contiguous"
+            err = probe_match(f"probe[{model} B={batch} {layout}]", got,
+                              want)
+            infeasible = float(torch.isneginf(want[2]).float().mean())
+            log(f"kernels[probe {model}] B={batch} chunk={CHUNK} "
+                f"T={HORIZON} n={dims.max_state_dim} "
+                f"m={dims.max_control_dim} alphas {layout}: max|kernel - "
+                f"twin| {err:.3e} on finite entries, -inf patterns "
+                f"identical ({infeasible:.4f} of the candidates infeasible)")
+            if case == 0:
+                main_err, main_args = err, args
+        lib = ls_probe.build_library(fspec, fbounds)[0]
+        log(f"launch[ls_probe {model}] B={BATCH}: "
+            f"{json.dumps(ls_probe.launch_config(lib, BATCH))}; ptxas "
+            f"{ptxas_line(lib, 'probe_kernel')}")
         source, replaces = ls_probe.KERNELS["ls_probe"]
-        rec = kernel_record("ls_probe", err, fn, twin, args,
+        rec = kernel_record("ls_probe", main_err, fn, twin, main_args,
                             BATCH * CHUNK * probe_flops(fspec, fbounds),
                             source, replaces)
         rec["device_ms"] = kernel_device_ms(
-            [lambda: fn(*args)], "void ls_probe::", ["probe_kernel"],
+            [lambda: fn(*main_args)], "void ls_probe::", ["probe_kernel"],
             reps=20)["probe_kernel"]
-        log(f"kernels[probe {model}] B={BATCH} chunk={CHUNK} T={HORIZON} "
-            f"n={dims.max_state_dim} m={dims.max_control_dim}: max|kernel - "
-            f"twin| {err:.3e} on finite entries, -inf patterns identical "
-            f"({infeasible:.4f} of the candidates infeasible); kernel "
-            f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
-            f"launch, plain twin {rec['plain_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        log(f"time[ls_probe {model}] B={BATCH} chunk={CHUNK} T={HORIZON}: "
+            f"kernel wrapper {rec['ms']:.4f} ms, device "
+            f"{rec['device_ms']:.4f} ms per launch, plain twin "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
         if out is None:
             out = rec
         else:

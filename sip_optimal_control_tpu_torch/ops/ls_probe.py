@@ -18,8 +18,9 @@ over the whole chain or tree.
                                ineligible), as pallas_ls.py:65-94
   ``probe_reference``          the plain twin: the port of
                                ``_probe_reference`` over the batch
-  ``probe_codegen``            the kernel's loop on the CPU, running the
-                               scalar programs through ``evaluate``
+  ``probe_codegen``            the kernel's arithmetic on the CPU, the
+                               scalar programs through ``evaluate``, summed
+                               over the stages in turn
   ``cuda_source``              the generated CUDA source of one model
   ``probe_kernel``             the kernel wrapper (one launch)
   ``build_fused_tree_spec``    the same for a tree: one program per node
@@ -181,9 +182,11 @@ def _bound_terms(v, lo, hi):
 
 
 def probe_codegen(spec: FusedLSSpec, bounds, x, dx, u, du, x0, alphas):
-    """What the kernel computes, in its order of operations, with every
-    scalar of the generated stage programs a [B, chunk] tensor
-    (``stage_codegen.evaluate``).  Float32 accumulators, as the kernel's."""
+    """What the kernel computes, with every scalar of the generated stage
+    programs a [B, chunk] tensor (``stage_codegen.evaluate``) and float32
+    accumulators, as the kernel's; the stages are summed in turn, as the
+    TPU kernel sums them (the CUDA kernel sums each team lane's items,
+    then the lanes: csrc/ls_probe.cuh)."""
     lb_u, ub_u, lb_x, ub_x = bounds
     T = spec.horizon
     a = alphas[..., None]                            # [B, chunk, 1]
@@ -309,6 +312,10 @@ def cuda_source(spec: FusedLSSpec, bounds: tuple) -> str:
         "                                 a_sb, a_sk, f_out, th_out, lb_out,",
         "                                 stream);",
         "}",
+        "",
+        'extern "C" void ls_probe_launch_config(int B, int* out) {',
+        "  ls_probe::launch_config<Model>(B, out);",
+        "}",
         ""])
 
 
@@ -320,7 +327,7 @@ def build_library(spec, bounds):
             "ls_probe_tree", cuda_source_tree(spec, bounds_key(bounds)),
             ("ls_probe_tree.cuh",))
     return cuda_build.build("ls_probe", cuda_source(spec, bounds_key(bounds)),
-                            ("ls_probe.cuh",))
+                            ("ls_probe.cuh", "riccati_tiny.cuh", "team.cuh"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,6 +339,18 @@ def _load(path: str, symbol: str):
     fn.argtypes = [i32, i32] + [ptr] * 6 + [i64, i64] + [ptr] * 4
     fn.restype = i32
     return fn
+
+
+def launch_config(path: str, B: int) -> dict:
+    """The chain probe's launch at batch ``B``, from the library built at
+    ``path`` (``build_library(spec, bounds)[0]``): grid, block and dynamic
+    shared memory bytes, the lanes of a scenario's team."""
+    fn = ctypes.CDLL(path).ls_probe_launch_config
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 4)()
+    fn(B, out)
+    return dict(zip(("grid", "block", "smem", "lanes"), out))
 
 
 def _entry(spec, bounds):
