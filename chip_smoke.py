@@ -32,14 +32,18 @@ Phases; any failure raises and the script exits non-zero:
    ragged B=1000 (transposed): -inf patterns identical, finite entries
    within 2e-5 relative; its launch configuration, ptxas line and device
    time per launch.  The tree probe the same way on robust_tree (horizon
-   50: 51 nodes, 50 edges) at B=4096 and a ragged B=1000, with its device
-   time per launch.  The four
+   50: 51 nodes, 50 edges) at B=4096 in both layouts and at a ragged
+   B=1000 (transposed), with its launch configuration, ptxas line and
+   device time per launch.  The four
    fused kernels on cartpole, quadrotor (exact) and chain16 at B=4096,
    T=50 against their twins (FACTOR_TOL, SOLVE_TOL, statuses identical,
    the Newton step at the solver's delta under compare's rule), with the
    factor's and eval's launch configuration, ptxas line and wrapper time
    less device time.
-   Times from CUDA events after warm-up, beside each kernel's bound.
+   Times from CUDA events after warm-up, beside each kernel's bound;
+   device times from torch.profiler, each session's count of a kernel's
+   records held to the launches its counter saw (profiled again on a
+   mismatch).
 4. Cartpole path: batched warm-started cartpole MPC (horizon 50, batch
    4096, float32, Gauss-Newton, 5 fixed interior-point trips per step,
    filter line search probing 6 step sizes through the fused probe,
@@ -459,7 +463,7 @@ def check_riccati(device):
         dev = kernel_device_ms([lambda fn=rc.KERNELS[name][0], args=args:
                                 fn(*args) for name, (_, args) in recs.items()],
                                "void riccati::",
-                               [RICCATI_NAMES[name] for name in recs])
+                               {name: RICCATI_NAMES[name] for name in recs})
         for name, (err, args) in recs.items():
             fn, twin, source, replaces = rc.KERNELS[name]
             rec = kernel_record(name, err, fn, twin, args,
@@ -578,8 +582,8 @@ def check_probe(device):
                             BATCH * CHUNK * probe_flops(fspec, fbounds),
                             source, replaces)
         rec["device_ms"] = kernel_device_ms(
-            [lambda: fn(*main_args)], "void ls_probe::", ["probe_kernel"],
-            reps=20)["probe_kernel"]
+            [lambda: fn(*main_args)], "void ls_probe::",
+            {"ls_probe": "probe_kernel"}, reps=20)["probe_kernel"]
         log(f"time[ls_probe {model}] B={BATCH} chunk={CHUNK} T={HORIZON}: "
             f"kernel wrapper {rec['ms']:.4f} ms, device "
             f"{rec['device_ms']:.4f} ms per launch, plain twin "
@@ -594,8 +598,10 @@ def check_probe(device):
 
 def check_probe_tree(device):
     """The tree probe kernel against its twin on robust_tree at the main
-    path's batch and at a ragged one, some candidates infeasible; the
-    device time per launch.  Returns the timing record."""
+    path's batch (the candidates contiguous, then as the solver's
+    transposed view) and at a ragged batch (B=1000, transposed), some
+    candidates infeasible; logs its launch configuration and ptxas line.
+    Returns the timing record, with the device time per launch."""
     import torch
     from sip_optimal_control_tpu_torch.ops import ls_probe
 
@@ -606,32 +612,39 @@ def check_probe_tree(device):
     def twin(*a):
         return ls_probe.probe_reference_tree(tspec, tbounds, *a)
 
-    rec = None
-    for seed, batch in ((20, BATCH), (21, 1000)):
-        args = probe_inputs(dims, batch, seed, device)
+    for case, (batch, solver_view) in enumerate(
+            ((BATCH, False), (BATCH, True), (1000, True))):
+        args = probe_inputs(dims, batch, 20 + case, device)
+        if solver_view:                # solver/sip.py
+            args = args[:5] + (args[5].t().contiguous().t(),)
         want = twin(*args)
         got = fn(*args)
         torch.cuda.synchronize()
-        err = probe_match(f"probe_tree[B={batch}]", got, want)
+        layout = "transposed" if solver_view else "contiguous"
+        err = probe_match(f"probe_tree[B={batch} {layout}]", got, want)
         infeasible = float(torch.isneginf(want[2]).float().mean())
         log(f"kernels[probe_tree robust_tree] B={batch} chunk={CHUNK} "
             f"N={dims.num_nodes} E={dims.num_edges} n={dims.max_state_dim} "
-            f"m={dims.max_control_dim}: max|kernel - twin| {err:.3e} on "
-            f"finite entries, -inf patterns identical "
+            f"m={dims.max_control_dim} alphas {layout}: max|kernel - twin| "
+            f"{err:.3e} on finite entries, -inf patterns identical "
             f"({infeasible:.4f} of the candidates infeasible)")
-        if batch != BATCH:
-            continue
-        source, replaces = ls_probe.KERNELS["ls_probe_tree"]
-        rec = kernel_record("ls_probe_tree", err, fn, twin, args,
-                            batch * CHUNK * probe_tree_flops(tspec, tbounds),
-                            source, replaces)
-        rec["device_ms"] = kernel_device_ms(
-            [lambda: fn(*args)], "void ls_probe_tree::",
-            ["probe_tree_kernel"], reps=20)["probe_tree_kernel"]
-        log(f"time[ls_probe_tree] B={batch} chunk={CHUNK}: kernel wrapper "
-            f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
-            f"launch; plain twin {rec['plain_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+        if case == 0:
+            main_err, main_args = err, args
+    lib = ls_probe.build_library(tspec, tbounds)[0]
+    log(f"launch[ls_probe_tree robust_tree] B={BATCH}: "
+        f"{json.dumps(ls_probe.launch_config(lib, BATCH))}; ptxas "
+        f"{ptxas_line(lib, 'probe_tree_kernel')}")
+    source, replaces = ls_probe.KERNELS["ls_probe_tree"]
+    rec = kernel_record("ls_probe_tree", main_err, fn, twin, main_args,
+                        BATCH * CHUNK * probe_tree_flops(tspec, tbounds),
+                        source, replaces)
+    rec["device_ms"] = kernel_device_ms(
+        [lambda: fn(*main_args)], "void ls_probe_tree::",
+        {"ls_probe_tree": "probe_tree_kernel"}, reps=20)["probe_tree_kernel"]
+    log(f"time[ls_probe_tree] B={BATCH} chunk={CHUNK}: kernel wrapper "
+        f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
+        f"launch; plain twin {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -759,39 +772,60 @@ def _leaves(tensors):
     return out
 
 
-def kernel_device_ms(calls, prefix, want, reps=5, tries=3):
-    """The kernel's own device time per launch (ms) by torch.profiler,
-    keyed by kernel-name prefix, over `reps` rounds of `calls`.  A session
-    whose trace lacks a kernel that `want` names (by the start of its
-    name) is profiled again, up to `tries` sessions: the profiler has
-    dropped a launched kernel's records from a session."""
+def kernel_device_ms(calls, prefix, want, reps=5, tries=5):
+    """The kernels' own device time per launch (ms) by torch.profiler over
+    `reps` rounds of `calls`, keyed by kernel name after `prefix`: each
+    kernel's device time over the launches the profiler recorded.  `want`
+    maps each wanted kernel's launch counter (the port's) to the start of
+    its name; a warm-up round's counters give the launches a round makes.
+    The profiler lost device records at a session's edges (the first one
+    or two of a session without a warm-up step; one of 20 in sessions
+    with one): so each session traces one more round first and discards
+    it (the profiler schedule's warm-up step), and each traced step
+    starts and ends with a spin kernel of ~1 ms that no count reads.  A
+    session whose records of a wanted kernel count other than `reps`
+    times the round's launches is profiled again, up to `tries`
+    sessions, and with none that counts them all it raises.  Every
+    session's readings are logged."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    before = read_counts()
     for fn in calls:
         fn()
     torch.cuda.synchronize()
+    after = read_counts()
+    launched = {name: reps * (after[counter] - before[counter])
+                for counter, name in want.items()}
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in calls:
-                    fn()
-            torch.cuda.synchronize()
-        out, seen = {}, []
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for rounds in (1, reps):
+                torch.cuda._sleep(2_000_000)
+                for _ in range(rounds):
+                    for fn in calls:
+                        fn()
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+                prof.step()
+        out, count = {}, {}
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            seen.append(e.key[:60])
-            if e.key.startswith(prefix):
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.key.startswith(prefix)):
                 name = e.key[len(prefix):].split("<")[0]
                 out[name] = e.self_device_time_total / e.count / 1e3
-        missing = [w for w in want if not any(k.startswith(w) for k in out)]
-        if not missing:
+                count[name] = count.get(name, 0) + e.count
+        seen = {name: sum(c for k, c in count.items() if k.startswith(name))
+                for name in launched}
+        log(f"device time: profiler session {attempt + 1} of {tries}: "
+            + ", ".join(f"{k} {v:.4f} ms x {count[k]}" for k, v in out.items())
+            + f"; launched {launched}")
+        if seen == launched:
             return out
-        log(f"device time: {missing} missing from profiler session "
-            f"{attempt + 1} of {tries}; its device records: {seen}")
-    raise AssertionError(f"device time: no profiler record of {missing} "
-                         f"in {tries} sessions")
+    raise AssertionError(f"device time: the profiler counted {seen} "
+                         f"launches of {launched} in each of {tries} "
+                         "sessions")
 
 
 # each fused kernel's name in the profiler and in ptxas's log (the factor:
@@ -914,7 +948,7 @@ def check_fused(device):
         dev = kernel_device_ms([lambda fn=fn, args=args: fn(*args)
                                 for fn, _, args, _ in cases.values()],
                                "void fused_iter::",
-                               [FUSED_NAMES[name] for name in cases])
+                               {name: FUSED_NAMES[name] for name in cases})
         lib = fi.build_library(spec, bounds)[0]
         for name in fi.KERNEL_NAMES:
             log(f"launch[{name} {model}] B={BATCH}: "

@@ -26,8 +26,9 @@ over the whole chain or tree.
   ``build_fused_tree_spec``    the same for a tree: one program per node
                                cost, edge cost and edge dynamics with its
                                stage index baked (pallas_ls.py:118-160)
-  ``probe_reference_tree``,    the tree's twin, its kernel loop on the CPU,
-  ``probe_codegen_tree``,      its source and its wrapper
+  ``probe_reference_tree``,    the tree's twin, its baked programs on the
+  ``probe_codegen_tree``,      CPU (in the TPU kernel's order), its source
+                               and its wrapper
   ``cuda_source_tree``,
   ``probe_tree_kernel``
   ``make_fused_probe``         CPU tensors -> twin, CUDA float32 -> kernel
@@ -342,10 +343,14 @@ def _load(path: str, symbol: str):
 
 
 def launch_config(path: str, B: int) -> dict:
-    """The chain probe's launch at batch ``B``, from the library built at
-    ``path`` (``build_library(spec, bounds)[0]``): grid, block and dynamic
-    shared memory bytes, the lanes of a scenario's team."""
-    fn = ctypes.CDLL(path).ls_probe_launch_config
+    """The probe's launch at batch ``B``, from the chain's or the tree's
+    library built at ``path`` (``build_library(spec, bounds)[0]``): grid,
+    block and dynamic shared memory bytes, the lanes of a scenario's
+    team."""
+    lib = ctypes.CDLL(path)
+    fn = getattr(lib, "ls_probe_launch_config", None)
+    if fn is None:
+        fn = lib.ls_probe_tree_launch_config
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = None
     out = (ctypes.c_int * 4)()
@@ -500,9 +505,13 @@ def probe_reference_tree(spec: TreeLSSpec, bounds, x, dx, u, du, x0,
 
 
 def probe_codegen_tree(spec: TreeLSSpec, bounds, x, dx, u, du, x0, alphas):
-    """What the tree kernel computes, in its order of operations (nodes,
-    then edges, then the root row), with every scalar of the baked stage
-    programs a [B, chunk] tensor.  Float32 accumulators, as the kernel's."""
+    """What the tree kernel computes, with every scalar of the baked stage
+    programs a [B, chunk] tensor and float32 accumulators, as the kernel's,
+    summed in the TPU kernel's order (the nodes, then the edges, then the
+    root row: pallas_ls.py:415-468).  The CUDA kernel adds the same terms
+    in another order, per (edge, candidate) item over a team's lanes
+    (csrc/ls_probe_tree.cuh), which tests/test_torch_tree_probe_host.py
+    bounds."""
     lb_u, ub_u, lb_x, ub_x = bounds
     a = alphas[..., None]                            # [B, chunk, 1]
     acc = torch.float32
@@ -530,96 +539,113 @@ def probe_codegen_tree(spec: TreeLSSpec, bounds, x, dx, u, du, x0, alphas):
 
 def _dedup_functions(programs, prefix: str):
     """Emit each program once per distinct text: (device functions' source,
-    the function name of each program).  Stages whose baked programs are
-    the same (most of a scenario tree's) share one function, so nvcc
-    compiles each distinct stage function once."""
-    names, texts, seen = [], [], {}
+    each program's function index among them, named ``{prefix}_{index}``).
+    Stages whose baked programs are the same (most of a scenario tree's)
+    share one function, so nvcc compiles each distinct stage function
+    once."""
+    ids, texts, seen = [], [], {}
     for prog in programs:
         text = emit_cuda(prog, "STAGE_FN")
         if text not in seen:
-            seen[text] = f"{prefix}_{len(seen)}"
+            seen[text] = len(seen)
             texts.append(text.replace("void STAGE_FN(",
-                                      f"void {seen[text]}(", 1))
-        names.append(seen[text])
-    return texts, names
+                                      f"void {prefix}_{seen[text]}(", 1))
+        ids.append(seen[text])
+    return texts, ids
+
+
+def _c_table(name: str, values) -> str:
+    return (f"__device__ const int {name}[{len(values)}] = {{"
+            + ", ".join(map(str, values)) + "};")
+
+
+def _c_dispatch(member: str, params: str, table: str, name: str,
+                args: str, fns: int, scalar: bool):
+    """A ``Model`` member of edge ``e`` that runs the distinct function
+    ``{name}_{table[e]}`` on ``args``: one switch over the ``fns`` distinct
+    functions, none for one.  ``scalar``: the function's output returned,
+    else written through ``out``."""
+    def call(i):
+        return f"{name}_{i}({args}, {'&out' if scalar else 'out'});"
+    body = ["    float out;"] if scalar else []
+    if fns == 1:
+        body.append(f"    {call(0)}")
+    else:
+        body.append(f"    switch ({table}[e]) {{")
+        body += [f"      case {i}: {call(i)} break;" for i in range(fns - 1)]
+        body += [f"      default: {call(fns - 1)} break;", "    }"]
+    if scalar:
+        body.append("    return out;")
+    return [f"  static __device__ __forceinline__ "
+            f"{'float' if scalar else 'void'} {member}(int e,",
+            f"      {params}) {{", *body, "  }"]
 
 
 @functools.lru_cache(maxsize=16)
 def cuda_source_tree(spec: TreeLSSpec, bounds: tuple) -> str:
     """The tree kernel's source for one model: the distinct stage functions,
-    the finite bounds and the whole tree's node and edge list baked in
-    (parent and child indices are literals), ``csrc/ls_probe_tree.cuh``
-    instantiated behind ``ls_probe_tree_f32``.  Every node's x(alpha) is
-    computed once into a local array, which stays in registers when N n is
-    small."""
+    the finite bounds, the tree's tables (each edge's parent and child node
+    and the index of its child's node cost, its edge cost and its dynamics
+    among the distinct functions) and one switch per kind over the distinct
+    functions, ``csrc/ls_probe_tree.cuh`` instantiated behind
+    ``ls_probe_tree_f32`` and ``ls_probe_tree_launch_config``."""
     lb_u, ub_u, lb_x, ub_x = bounds
-    n, m, N = spec.n, spec.m, spec.num_nodes
+    n, m, N, E = spec.n, spec.m, spec.num_nodes, len(spec.parents)
     ncost_fns, ncost = _dedup_functions(spec.node_progs, "node_cost")
     ecost_fns, ecost = _dedup_functions(spec.ecost_progs, "edge_cost")
     dyn_fns, dyn = _dedup_functions(spec.dyn_progs, "dynamics")
-
     node_terms = _c_bound_terms("x", lb_x, ub_x, "ls_probe_tree")
-    edge_terms = _c_bound_terms("u", lb_u, ub_u, "ls_probe_tree")
+    edge_terms = (_c_bound_terms("u", lb_u, ub_u, "ls_probe_tree")
+                  + node_terms)
 
-    def logb_fn(name, var, terms):
+    def logb_fn(name, params, terms):
         body = [f"    float out = {terms[0]};" if terms else
                 "    float out = 0.0f;"]
         body += [f"    out = out + {t};" for t in terms[1:]]
         return [f"  static __device__ __forceinline__ float {name}(",
-                f"      const float* __restrict__ {var}) {{",
-                *body, "    return out;", "  }"]
+                f"      {params}) {{", *body, "    return out;", "  }"]
 
-    def point(i):
-        return f"xa + {i * n}"
-
-    body = [f"    float xa[{N * n}];",
-            f"    ls_probe_tree::point<{N * n}>(x, dx, a, xa);",
-            "    // nodes: cost and state-bound terms"]
-    for i in range(N):
-        body += ["    {", f"      f += {ncost[i]}_v({point(i)});"] + (
-            [f"      lb += Model::node_logb({point(i)});"] if node_terms
-            else []) + ["    }"]
-    body.append("    // edges: cost, L1 dynamics residual, control-bound "
-                "terms")
-    for e, (p, c) in enumerate(zip(spec.parents, spec.children)):
-        body += ([f"    {{  // edge {e}: node {p} -> node {c}",
-                  f"      float ue[{m}], pred[{n}];",
-                  f"      ls_probe_tree::point<{m}>(u + {e * m}, "
-                  f"du + {e * m}, a, ue);",
-                  f"      {dyn[e]}({point(p)}, ue, pred);",
-                  f"      f += {ecost[e]}_v({point(p)}, ue);",
-                  f"      th += ls_probe_tree::l1<{n}>(pred, {point(c)});"]
-                 + (["      lb += Model::edge_logb(ue);"] if edge_terms
-                    else []) + ["    }"])
-    root = spec.root
-    scalar_wrappers = []
-    for fn in sorted(set(ncost)):
-        scalar_wrappers += [
-            f"__device__ __forceinline__ float {fn}_v(const float* x) {{",
-            "  float out;", f"  {fn}(x, &out);", "  return out;", "}"]
-    for fn in sorted(set(ecost)):
-        scalar_wrappers += [
-            f"__device__ __forceinline__ float {fn}_v(const float* x, "
-            "const float* u) {", "  float out;", f"  {fn}(x, u, &out);",
-            "  return out;", "}"]
+    x_, u_ = "const float* __restrict__ x", "const float* __restrict__ u"
     return "\n".join([
         "// Generated by sip_optimal_control_tpu_torch/ops/ls_probe.py from",
         "// the model's stage functions; see csrc/ls_probe_tree.cuh.",
         '#include "ls_probe_tree.cuh"',
         "",
-        *ncost_fns, *ecost_fns, *dyn_fns, *scalar_wrappers,
+        *ncost_fns, *ecost_fns, *dyn_fns,
+        "// each edge's parent and child node; the index of its child's node",
+        "// cost, its edge cost and its dynamics among the distinct functions",
+        _c_table("tree_parent", spec.parents),
+        _c_table("tree_child", spec.children),
+        _c_table("tree_child_cost", [ncost[c] for c in spec.children]),
+        _c_table("tree_edge_cost", ecost),
+        _c_table("tree_dynamics", dyn),
+        "",
         "struct Model {",
-        f"  static constexpr int kNodes = {N}, kEdges = {len(spec.parents)}, "
-        f"N = {n}, M = {m}, kRoot = {root};",
-        *logb_fn("node_logb", "x", node_terms),
-        *logb_fn("edge_logb", "u", edge_terms),
-        "  // f, theta (without the root row) and logb of one candidate",
-        "  static __device__ __forceinline__ void accumulate(",
-        "      const float* __restrict__ x, const float* __restrict__ dx,",
-        "      const float* __restrict__ u, const float* __restrict__ du,",
-        "      float a, float& f, float& th, float& lb) {",
-        *body,
+        f"  static constexpr int kNodes = {N}, kEdges = {E}, N = {n}, "
+        f"M = {m}, kRoot = {spec.root};",
+        "  static __device__ __forceinline__ int parent(int e) {",
+        "    return tree_parent[e];",
         "  }",
+        "  static __device__ __forceinline__ int child(int e) {",
+        "    return tree_child[e];",
+        "  }",
+        *_c_dispatch("child_cost", x_, "tree_child_cost", "node_cost", "x",
+                     len(ncost_fns), True),
+        *_c_dispatch("edge_cost", f"{x_}, {u_}", "tree_edge_cost",
+                     "edge_cost", "x, u", len(ecost_fns), True),
+        *_c_dispatch("dynamics", f"{x_}, {u_}, float* out", "tree_dynamics",
+                     "dynamics", "x, u", len(dyn_fns), False),
+        "  static __device__ __forceinline__ float root_cost(",
+        f"      {x_}) {{",
+        "    float out;",
+        f"    node_cost_{ncost[spec.root]}(x, &out);",
+        "    return out;",
+        "  }",
+        "  // a node's state-bound terms, in order",
+        *logb_fn("node_logb", x_, node_terms),
+        "  // an item's control-bound terms, then its child's state-bound",
+        "  // terms",
+        *logb_fn("edge_logb", f"{u_}, {x_}", edge_terms),
         "};",
         "",
         'extern "C" int ls_probe_tree_f32(int B, int chunk, const float* x,',
@@ -632,6 +658,10 @@ def cuda_source_tree(spec: TreeLSSpec, bounds: tuple) -> str:
         "  return ls_probe_tree::launch<Model>(B, chunk, x, dx, u, du, x0,",
         "                                      alphas, a_sb, a_sk, f_out,",
         "                                      th_out, lb_out, stream);",
+        "}",
+        "",
+        'extern "C" void ls_probe_tree_launch_config(int B, int* out) {',
+        "  ls_probe_tree::launch_config<Model>(B, out);",
         "}",
         ""])
 

@@ -123,8 +123,9 @@ def test_tree_eligibility():
 
 def test_tree_cuda_source_deduplicates_stage_functions():
     """The bench's robust_tree (horizon 50: 51 nodes, 50 edges) has 2
-    distinct node costs, 2 edge costs and 5 dynamics; each is emitted once,
-    and the edge list carries every parent and child index as a literal."""
+    distinct node costs, 2 edge costs and 5 dynamics; each is emitted once
+    and reached through one switch per kind, and the tree's tables carry
+    every parent and child index and each edge's function indices."""
     pspec, pbounds = _port_spec(t_shared=2, n_branches=4, t_branch=12)
     src = ls_probe.cuda_source_tree(pspec, ls_probe.bounds_key(pbounds))
     for prefix, count in (("node_cost", 2), ("edge_cost", 2),
@@ -133,12 +134,19 @@ def test_tree_cuda_source_deduplicates_stage_functions():
                 if ln.startswith(f"__device__ __forceinline__ void {prefix}_")]
         assert len(defs) == count, (prefix, defs)
     assert "kNodes = 51, kEdges = 50, N = 2, M = 1, kRoot = 0" in src
-    assert "// edge 14: node 2 -> node 15" in src
+    # edge 14: node 2 -> node 15, the first edge of branch 1
+    parents = ", ".join(map(str, pspec.parents))
+    assert f"tree_parent[50] = {{{parents}}};" in src
+    assert pspec.parents[14] == 2 and pspec.children[14] == 15
+    assert "tree_child[50] = {" + ", ".join(map(str, range(1, 51))) in src
+    assert "tree_dynamics[50] = {0, 0, " + "1, " * 12 + "2, " in src
+    # the switches: 2 + 2 + 5 functions, the last of each the default
+    assert src.count("      case ") == 1 + 1 + 4
+    assert src.count("      default: ") == 3
     # the state is unbounded: no node bound terms; the controls' two
-    assert "Model::node_logb" not in src
-    assert src.count("lb += Model::edge_logb(ue);") == 50
-    # every node's x(alpha) once, in one local array read by each use
-    assert src.count("float xa[102];") == 1
+    assert "safe_log(x[" not in src
+    assert src.count("ls_probe_tree::safe_log(u[0] - (-2.0f)) + "
+                     "ls_probe_tree::safe_log((2.0f) - u[0])") == 1
 
 
 def test_tree_kernel_wrapper_refuses_cpu_and_float64():

@@ -1,8 +1,11 @@
 """The tree line-search probe kernel on the card (csrc/ls_probe_tree.cuh):
 the wrapper against its plain twin, both generated variants, launch
-counting, a tree rooted elsewhere than node 0 with state bounds, and the
-robust_tree MPC path.  Needs a CUDA GPU and skips without one; imports no
-JAX, so it runs on a machine without it:
+counting, a tree rooted elsewhere than node 0 with state bounds, the
+robust_tree MPC path, and the cases of tests/test_torch_tree_probe_host.py
+at the main path's batch (4096) and a ragged one (1000): every tree of that
+file (the fan too), 1, 6 and 7 candidates in both layouts, the summation
+order's bound, a NaN and a -inf confined.  Needs a CUDA GPU and skips
+without one; imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -o addopts="" -m gpu \
         tests/test_torch_tree_probe_gpu.py
@@ -10,6 +13,8 @@ JAX, so it runs on a machine without it:
 The probe's bar is tests/test_pallas_ls.py's: -inf patterns identical,
 finite entries within 2e-5 relative.
 """
+
+import concurrent.futures
 
 import numpy as np
 import pytest
@@ -20,6 +25,11 @@ from sip_optimal_control_tpu_torch.models import robust_scenario_tree
 from sip_optimal_control_tpu_torch.ops import fused_iter, ls_probe
 from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
 from sip_optimal_control_tpu_torch.solver.settings import LineSearchSettings
+
+from test_torch_ls_probe_host import (assert_order_bound, probe_match,
+                                      transposed)
+from test_torch_tree_probe_host import TREES, tree_inputs, tree_terms
+from test_torch_tree_probe_host import problem as tree_problem
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-5
@@ -160,3 +170,80 @@ def test_robust_tree_mpc_launches_only_the_tree_probe(cuda):
     assert float(same) >= 0.95, float(same)
     assert bool(((fused.statuses == 0) | (fused.statuses == 1)).all())
     assert bool(torch.isfinite(fused.x).all())
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tree_probe_host.py's cases on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tree_libs():
+    """The card, with every host-test tree's library built, one nvcc each,
+    all at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    device = torch.device("cuda", 0)
+    specs = [tree_problem(name, device) for name in TREES]
+    with concurrent.futures.ThreadPoolExecutor(len(specs)) as pool:
+        list(pool.map(lambda sb: ls_probe.build_library(*sb), specs))
+    return device
+
+
+@pytest.mark.parametrize("batch", [4096, 1000])
+@pytest.mark.parametrize("name", list(TREES))
+def test_tree_kernel_cases_on_card(tree_libs, name, batch):
+    """1, 6 and 7 candidates: one launch counted, the twin's -inf patterns
+    and values, the same outputs from either layout of the candidates;
+    with 6, the summation order's bound from 6 edges on.  Below that the
+    bound, (E + 1) float32 epsilons, is smaller than the rounding by which
+    the kernel's terms (nvcc contracts them into FMAs) differ from
+    PyTorch's, so it would test the terms, not the order: the host test
+    holds those trees to it with the same terms."""
+    spec, bounds = tree_problem(name, tree_libs)
+    E = len(spec.parents)
+    for chunk in (1, 6, 7):
+        args = tree_inputs(spec, batch, chunk, E + chunk, tree_libs)
+        alphas_t = transposed(args[5])
+        ls_probe.reset_launch_counts()
+        got = ls_probe.probe_tree_kernel(spec, bounds, *args[:5], alphas_t)
+        torch.cuda.synchronize()
+        assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 1}
+        probe_match(got, ls_probe.probe_reference_tree(spec, bounds, *args))
+        got_c = ls_probe.probe_tree_kernel(spec, bounds, *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, got_c))
+        if chunk == 6 and E >= 6:
+            assert_order_bound(got, tree_terms(spec, bounds, *args), E)
+
+
+@pytest.mark.parametrize("batch", [4096, 1000])
+@pytest.mark.parametrize("name,node", [("robust50", 20), ("robust3x3", 7),
+                                       ("fan80", 1), ("fork2", 1)])
+def test_tree_nan_and_neg_inf_confined_on_card(tree_libs, name, node,
+                                               batch):
+    """A NaN in scenario 5's iterate makes its f and theta NaN for every
+    candidate and changes no other scenario's outputs; a step far past the
+    control bounds for a feasible scenario's candidate 2 makes that logb
+    -inf and changes no other entry."""
+    spec, bounds = tree_problem(name, tree_libs)
+    args = tree_inputs(spec, batch, 6, 7, tree_libs)
+    clean = ls_probe.probe_tree_kernel(spec, bounds, *args)
+    x = args[0].clone()
+    x[5, node, 1] = float("nan")
+    got = ls_probe.probe_tree_kernel(spec, bounds, x, *args[1:])
+    assert bool(torch.isnan(got[0][5]).all() and torch.isnan(got[1][5]).all())
+    keep = torch.arange(batch, device=tree_libs) != 5
+    for a, b in zip(got, clean):
+        assert torch.equal(a[keep], b[keep])
+    # the last scenario with every candidate feasible (past the eighth
+    # with scaled controls; the state bounds of the small trees make some
+    # infeasible)
+    s = int(torch.isfinite(clean[2]).all(1).nonzero()[-1])
+    assert s >= batch // 8
+    alphas = args[5].clone()
+    alphas[s, 2] = 1e3
+    got = ls_probe.probe_tree_kernel(spec, bounds, *args[:5], alphas)
+    assert float(got[2][s, 2]) == -np.inf
+    keep = torch.ones(batch, 6, dtype=torch.bool, device=tree_libs)
+    keep[s, 2] = False
+    for a, b in zip(got, clean):
+        assert torch.equal(a[keep], b[keep])
