@@ -9,8 +9,8 @@ Phases; any failure raises and the script exits non-zero:
 
 1. Device: requires CUDA; prints the card and its power limit; TF32 off.
 2. Build: compiles, all at once, the CUDA Riccati kernels (csrc/riccati.cu),
-   the fused line-search probe generated for each chain path's model
-   (ops/ls_probe.py), the tree probe generated for robust_tree
+   the fused line-search probe generated for each chain path's model and
+   for phase 8's quadrotor (ops/ls_probe.py), the tree probe generated for robust_tree
    (csrc/ls_probe_tree.cuh) and the four whole-iteration kernels
    generated for cartpole, chain16 and the quadrotor (ops/fused_iter.py),
    one nvcc per library;
@@ -79,7 +79,35 @@ Phases; any failure raises and the script exits non-zero:
 Every path logs usable_frac and solved_frac of each timed call; the gate
 reads the last.  A kernel's bound counts the bytes it reads and writes
 (fused_bytes for the fused kernels) and its operations.
-8. The last line is the device record.
+8. Quadrotor run_mpc (BASELINE config 4, examples/quadrotor_mpc.py):
+   planar_quadrotor(horizon=20, target=(1.0, 1.5)), float32, B=4096
+   starts x0 = (-0.5, 0, ...) jittered with seed 0, 100 warm-started
+   re-solves through the package's run_mpc with the example's float32
+   settings (25 iterations, tol 1e-3, convergence-tested, 3 factor
+   retries, Armijo over 10 candidates one at a time), riccati_backend=
+   "cuda" and the fused probe.  First the factor, both solve kernels and
+   the probe at the path's shape against their twins, timed beside twin
+   and bound.  Step 1 against "scan" with the standard probe under
+   compare_step1's rule (the next plant state and applied control within
+   1e-2 (1 + |scan|)); usable on >= 0.99 of the (step, scenario) pairs;
+   launches as solver_launches predicts from the trips (each step's
+   largest iteration count): factor 4 per trip, each solve 1, the probe
+   10; solves/s from CUDA events; then run_mpc_timed at a quarter of the
+   run's host time must stop early with run_mpc's statuses and states.
+9. Joint theta (bench.py --mode joint-theta): shared_theta_chain(horizon=
+   50), S=4096 coupled scenarios from standard normal starts (seed 0,
+   float32), the bench's settings, riccati_backend="cuda": the three
+   Riccati kernels at (2, 1) against their twins and timed; one warm-up
+   call, which must be SOLVED on every scenario with theta bit-identical
+   on all of them and theta and the controls within compare's rule of
+   the same coupled solve on "scan" in float64 (4x the float32 "scan"
+   solve's own error); then 5 timed calls whose launches must equal
+   solver_launches' count (per trip: 4 factorizations, each with one
+   theta-column solve, and one solve); best call -> coupled scenarios/s.
+   Phases 8 and 9 print their numbers beside the card's nvidia-smi line.
+10. The kernels line gives the Riccati kernels and the chain probe a
+   record at phases 8 and 9's shapes with those paths' launches; the last
+   line is the device record.
 """
 
 import concurrent.futures
@@ -120,6 +148,8 @@ PROBE_TOL = 2e-5                # relative, tests/test_pallas_ls.py:60-67
 # may be this many times the float32 twin's own (see compare)
 COND_FACTOR = 4
 QUALITY_USABLE = 0.99
+# phase 8's gate over its (step, scenario) pairs
+QUAD_USABLE = 0.99
 SCAN_AGREEMENT = 0.99
 # step 1 on the kernels vs the "scan" backend, per scenario (compare_step1).
 # The kernels' explicit W and scan's W differ by float32 roundoff times the
@@ -1138,7 +1168,7 @@ def run_path(device, model="cartpole", batch=BATCH, calls=None, steps=None,
                 steps=steps, calls=calls)
 
 
-def compare_step1(step1, model="cartpole", label=None):
+def compare_step1(step1, model="cartpole", label=None, iter_tol=None):
     """Step 1 on the kernels against the plain twins ("scan", standard
     probe), lane by lane: statuses equal, the next warm start and plant
     state within the path's iter_tol (1 + |scan|), the KKT error within
@@ -1156,7 +1186,7 @@ def compare_step1(step1, model="cartpole", label=None):
     (step1["scan64"])."""
     import torch
     cu, sc = step1["cuda"], step1["scan"]
-    iter_tol = PATHS[model]["iter_tol"]
+    iter_tol = iter_tol or PATHS[model]["iter_tol"]
     label = label or model
 
     def lane_err(a, b):
@@ -1315,10 +1345,386 @@ def report_path(res, q):
 
 
 # ---------------------------------------------------------------------------
+# phases 8 and 9: run_mpc on the quadrotor, the coupled joint-θ solve
+# ---------------------------------------------------------------------------
+
+# BASELINE config 4 (examples/quadrotor_mpc.py): planar quadrotor, horizon
+# 20, target (1.0, 1.5), 100 warm-started re-solves; the example's float32
+# settings, convergence-tested, with the Riccati kernels and the fused probe
+QUAD = dict(horizon=20, target=(1.0, 1.5), steps=100, iter_tol=1e-2,
+            budget_share=0.25)
+# bench.py --mode joint-theta (bench.py:349-356): 4096 coupled scenarios at
+# horizon 50, the best of 5 timed calls after one warm-up
+JOINT = dict(horizon=50, calls=5)
+
+
+def quad_settings(backend, fused_probe=True):
+    """examples/quadrotor_mpc.py's float32 settings on `backend`; the
+    default line search (Armijo, 10 candidates one at a time)."""
+    from sip_optimal_control_tpu_torch import Settings
+    from sip_optimal_control_tpu_torch.solver.settings import \
+        LineSearchSettings
+    return Settings(max_iterations=25, tol=1e-3, mu_min=1e-5, reg_floor=1e-5,
+                    prox_reg=1e-5, riccati_backend=backend,
+                    line_search=LineSearchSettings(fused_probe=fused_probe))
+
+
+def quad_inputs(device, batch=None):
+    """The quadrotor model (float32) and `batch` (BATCH) start states: the
+    example's x0 = (-0.5, 0, ...) jittered as main_path_inputs jitters
+    (seed 0, float32)."""
+    import torch
+    batch = batch or BATCH
+    from sip_optimal_control_tpu_torch.models import planar_quadrotor
+    built = planar_quadrotor(horizon=QUAD["horizon"], target=QUAD["target"],
+                             dtype=torch.float32, device=device)
+    x0 = np.zeros(6, np.float32)
+    x0[0] = -0.5
+    rng = np.random.default_rng(0)
+    x0s = np.tile(x0, (batch, 1))
+    x0s += 0.1 * rng.standard_normal((batch, 6)).astype(np.float32)
+    return built[:5], torch.as_tensor(x0s.astype(np.float32), device=device)
+
+
+def quad_run(model, x0s, backend, steps, fused_probe=True, budget=None):
+    """run_mpc (or run_mpc_timed with `budget` seconds) from `x0s`."""
+    from sip_optimal_control_tpu_torch import run_mpc, run_mpc_timed
+    settings = quad_settings(backend, fused_probe)
+    if budget is None:
+        return run_mpc(*model[:3], x0s, steps, settings, *model[3:])
+    return run_mpc_timed(*model[:3], x0s, steps, budget, settings,
+                         *model[3:])
+
+
+def step1_view(trace):
+    """run_mpc's first step in the fields compare_step1 reads: the next
+    plant state, the applied control (as a one-stage trajectory), the
+    status and the KKT error."""
+    import types
+    return types.SimpleNamespace(
+        x=trace.states[1], statuses=trace.statuses,
+        kkt_errors=trace.kkt_errors,
+        vars=types.SimpleNamespace(x=trace.states[1][:, None],
+                                   u=trace.controls[0][:, None]))
+
+
+def solver_launches(settings, trips, p=0):
+    """Launches of the standard iteration's kernels over `trips` interior-
+    point trips of a chain (solver/sip.py, ops/kkt.py): every trip factors
+    1 + max_factor_retries times (each retry refactors every scenario), and
+    each factorization solves the p θ columns (one stagewise solve per
+    column); one solve per trip plus one per refinement step; the fused
+    probe once per chunk of the backtracking budget."""
+    factors = (1 + settings.max_factor_retries) * trips
+    solves = factors * p + (1 + settings.iterative_refinement_steps) * trips
+    ls = settings.line_search
+    probes = (-(-ls.max_steps // max(1, ls.chunk)) * trips
+              if ls.fused_probe else 0)
+    return {"riccati_factor": factors, "riccati_solve_bwd": solves,
+            "riccati_solve_fwd": solves, "ls_probe": probes}
+
+
+def check_launches(label, got, want):
+    """Every counter at `want`'s value (0 where `want` has none)."""
+    for name, count in got.items():
+        exp = want.get(name, 0)
+        log(f"launches[{label}][{name}] = {count} (expected {exp})")
+        if count != exp:
+            raise AssertionError(f"{name}: {count} launches on the {label} "
+                                 f"path, expected {exp}")
+
+
+def riccati_path_records(device, label, T, n, m, seed):
+    """The factor and both solve kernels at a path's shape (B=BATCH,
+    horizon T, (n, m)) on random float32 chain data: each against its twin
+    (FACTOR_TOL, SOLVE_TOL), timed beside its twin and bound, with its
+    device ms per launch.  Returns {name: record}."""
+    import torch
+    from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
+    data = random_chain(T, n, m, BATCH, seed, device)
+    factor = "riccati_factor_gram" if n >= rc.GRAM_N else "riccati_factor"
+    fact_t = rc.factor_chain_reference(data)
+    bwd_in = (data.q, data.r, data.c, data.delta, fact_t.F_chol,
+              fact_t.G_chol, fact_t.K, data.A, data.B)
+    k_t, v_t = rc.solve_bwd_kernel_reference(*bwd_in)
+    x_root = torch.randn(BATCH, n, device=device,
+                         generator=torch.Generator(device).manual_seed(seed))
+    fwd_in = (x_root, k_t, fact_t.K, data.A, data.B, data.c, data.delta,
+              torch.cat([v_t, data.q[:, -1:]], dim=1), fact_t.V,
+              fact_t.F_chol)
+    cases = {factor: ((data.Q, data.delta, data.A, data.B, data.M, data.R),
+                      FACTOR_TOL),
+             "riccati_solve_bwd": (bwd_in, SOLVE_TOL),
+             "riccati_solve_fwd": (fwd_in, SOLVE_TOL)}
+    errs = {}
+    for name, (args, tol) in cases.items():
+        fn, twin = rc.KERNELS[name][:2]
+        errs[name], _ = compare(label, name, fn(*args), twin(*args), tol,
+                                slice(None))
+    dev = kernel_device_ms([lambda fn=rc.KERNELS[name][0], args=args:
+                            fn(*args) for name, (args, _) in cases.items()],
+                           "void riccati::",
+                           {name: RICCATI_NAMES[name] for name in cases})
+    out = {}
+    for name, (args, _) in cases.items():
+        fn, twin, source, replaces = rc.KERNELS[name]
+        rec = kernel_record(name, errs[name], fn, twin, args,
+                            BATCH * T * _riccati_flops(name, n, m), source,
+                            replaces)
+        rec["device_ms"] = dev[RICCATI_NAMES[name]]
+        log(f"time[{name} {label}] B={BATCH} T={T} n={n} m={m}: kernel "
+            f"wrapper {rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms "
+            f"per launch, plain twin {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}); max|kernel - "
+            f"twin| {errs[name]:.3e}")
+        out[name] = rec
+    return out
+
+
+def probe_path_record(device, fspec, fbounds, dims, chunk, label, seed):
+    """The chain probe generated for a path's model at the path's chunk,
+    B=BATCH, the candidates in the solver's transposed layout: against its
+    twin (probe_match), timed beside its twin and bound, with its device
+    ms per launch, launch configuration and ptxas line."""
+    import torch
+    from sip_optimal_control_tpu_torch.ops import ls_probe
+    fn = ls_probe.make_fused_probe(fspec, fbounds)
+
+    def twin(*a):
+        return ls_probe.probe_reference(fspec, fbounds, *a)
+
+    args = probe_inputs(dims, BATCH, seed, device)
+    args = args[:5] + (args[5][:, :chunk].t().contiguous().t(),)
+    got, want = fn(*args), twin(*args)
+    torch.cuda.synchronize()
+    err = probe_match(f"probe[{label}]", got, want)
+    lib = ls_probe.build_library(fspec, fbounds)[0]
+    log(f"launch[ls_probe {label}] B={BATCH}: "
+        f"{json.dumps(ls_probe.launch_config(lib, BATCH))}; ptxas "
+        f"{ptxas_line(lib, 'probe_kernel')}")
+    source, replaces = ls_probe.KERNELS["ls_probe"]
+    rec = kernel_record("ls_probe", err, fn, twin, args,
+                        BATCH * chunk * probe_flops(fspec, fbounds), source,
+                        replaces)
+    rec["device_ms"] = kernel_device_ms(
+        [lambda: fn(*args)], "void ls_probe::",
+        {"ls_probe": "probe_kernel"}, reps=20)["probe_kernel"]
+    log(f"time[ls_probe {label}] B={BATCH} chunk={chunk} "
+        f"T={fspec.horizon}: kernel wrapper {rec['ms']:.4f} ms, device "
+        f"{rec['device_ms']:.4f} ms per launch, plain twin "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}); max|kernel - twin| {err:.3e}")
+    return rec
+
+
+def kernel_busy_ms(records, launches):
+    """The hand-written kernels' device ms over `launches`: launches times
+    each kernel's device ms per launch at the path's shape."""
+    return sum(launches.get(name, 0) * rec["device_ms"]
+               for name, rec in records.items())
+
+
+def run_quadrotor(device, smi):
+    """Phase 8: run_mpc on the quadrotor (BASELINE config 4) at B=BATCH.
+    Returns (records {kernel: record at the path's shape}, launches)."""
+    import torch
+    from sip_optimal_control_tpu_torch import build_problem
+    label = "quadrotor run_mpc"
+    model, x0s = quad_inputs(device)
+    prob = build_problem(*model[:3], x0s, *model[3:])
+    if prob.fused_ls is None:
+        raise AssertionError("quadrotor: not eligible for the fused probe")
+    dims = model[1]
+    n, m, T = dims.max_state_dim, dims.max_control_dim, dims.num_edges
+    records = riccati_path_records(device, "quadrotor", T, n, m, seed=80)
+    settings = quad_settings("cuda")
+    records["ls_probe"] = probe_path_record(
+        device, *prob.fused_ls[:2], dims, max(1, settings.line_search.chunk),
+        "quadrotor_mpc", seed=81)
+
+    # step 1 on the kernels against "scan" with the standard probe
+    step1 = {"scan": step1_view(quad_run(model, x0s, "scan", 1, False)),
+             "cuda": step1_view(quad_run(model, x0s, "cuda", 1))}
+    agree = compare_step1(step1, label=label, iter_tol=QUAD["iter_tol"])
+    if agree < SCAN_AGREEMENT:
+        raise AssertionError(f"{label}: step-1 agreement {agree} < "
+                             f"{SCAN_AGREEMENT}")
+
+    steps = QUAD["steps"]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    start.record()
+    trace = quad_run(model, x0s, "cuda", steps)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = read_counts()
+    ev_s = start.elapsed_time(end) / 1e3
+
+    if tuple(trace.statuses.shape) != (steps, BATCH):
+        raise AssertionError(f"statuses shape {tuple(trace.statuses.shape)}")
+    if not (torch.isfinite(trace.states).all()
+            and torch.isfinite(trace.controls).all()):
+        raise AssertionError(f"{label}: non-finite states or controls")
+    # trips a step: the loop runs while any scenario is RUNNING
+    trips = int(trace.iterations.amax(1).sum())
+    check_launches(label, launches, solver_launches(settings, trips))
+    use = float(usable(trace).float().mean())
+    solved = float((trace.statuses == 0).float().mean())
+    target = torch.tensor(QUAD["target"], device=device)
+    pos_err = (trace.states[-1, :, :2] - target).norm(dim=-1)
+    iters = trace.iterations.float()
+    log(f"quality [{label}]: usable on {use:.4f} of the (step, scenario) "
+        f"pairs (bar {QUAD_USABLE}), SOLVED on {solved:.4f}; mean "
+        f"iterations {float(iters.mean()):.3f} (step 1 "
+        f"{float(iters[0].mean()):.3f}, steps 21-100 "
+        f"{float(iters[20:].mean()):.3f}); final position error median "
+        f"{float(pos_err.median()):.4f} max {float(pos_err.max()):.4f} m")
+    if use < QUAD_USABLE:
+        raise AssertionError(f"{label}: usable {use} < {QUAD_USABLE}")
+    solves = BATCH * steps
+    busy = kernel_busy_ms(records, launches)
+    log(f"path [{label}] ({smi}): {steps} steps, batch {BATCH}: "
+        f"{ev_s:.3f} s CUDA events / {host_s:.3f} s host -> "
+        f"{solves / ev_s:.1f} solves/s, {1e3 * ev_s / steps:.2f} ms per MPC "
+        f"step, {trips} trips ({trips / steps:.2f} per step, "
+        f"{1e3 * ev_s / trips:.2f} ms per trip); the port's kernels "
+        f"{busy / steps:.3f} ms of device time per step "
+        f"({json.dumps({k: v / steps for k, v in launches.items() if v})} "
+        f"launches per step)")
+
+    # run_mpc_timed at a budget that cuts the loop short: its prefix is
+    # run_mpc's first steps
+    budget = QUAD["budget_share"] * host_s
+    cut = quad_run(model, x0s, "cuda", steps, budget=budget)
+    k = cut.controls.shape[0]
+    if not 0 < k < steps:
+        raise AssertionError(f"{label}: run_mpc_timed at {budget:.3f} s ran "
+                             f"{k} of {steps} steps")
+    if not torch.equal(cut.statuses, trace.statuses[:k]):
+        raise AssertionError(f"{label}: run_mpc_timed's statuses differ")
+    err, _ = compare(label, "run_mpc_timed prefix states",
+                     (cut.states,), (trace.states[:k + 1],), SOLVE_TOL,
+                     slice(None))
+    log(f"run_mpc_timed [{label}] budget {budget:.3f} s: {k} of {steps} "
+        f"steps, statuses identical to run_mpc's, states within "
+        f"{err:.3e}")
+    log(json.dumps({label: {
+        "solves_per_s": solves / ev_s, "step_ms": 1e3 * ev_s / steps,
+        "trips_per_step": trips / steps, "kernel_device_ms_per_step":
+        busy / steps, "usable_frac": use, "solved_frac": solved,
+        "mean_iterations": float(iters.mean()),
+        "final_pos_err_median": float(pos_err.median()),
+        "step1_agreement": agree, "timed_prefix_steps": k}}))
+    return records, launches
+
+
+def joint_inputs(device, dtype=None):
+    """shared_theta_chain at JOINT's horizon in `dtype` (float32) on
+    `device` and the bench's start states: standard normal draws with
+    seed 0 rounded to float32 (bench.py:357-359)."""
+    import torch
+    from sip_optimal_control_tpu_torch.models import shared_theta_chain
+    dtype = dtype or torch.float32
+    model = shared_theta_chain(horizon=JOINT["horizon"], dtype=dtype,
+                               device=device)
+    x0s = np.random.default_rng(0).standard_normal((BATCH, 2))  # S = BATCH
+    return model, torch.as_tensor(x0s.astype(np.float32),
+                                  device=device).to(dtype)
+
+
+def joint_settings(backend):
+    """bench.py --mode joint-theta's settings (bench.py:352-353)."""
+    from sip_optimal_control_tpu_torch import Settings
+    return Settings(max_iterations=100, tol=1e-3, mu_min=1e-5,
+                    reg_floor=1e-5, prox_reg=1e-5, riccati_backend=backend)
+
+
+def joint_call(model, x0s, backend):
+    from sip_optimal_control_tpu_torch import solve_joint_theta
+    return solve_joint_theta(*model[:3], x0s, joint_settings(backend),
+                             *model[3:])
+
+
+def run_joint_theta(device, smi):
+    """Phase 9: the coupled joint-θ solve (bench.py --mode joint-theta) at
+    S=BATCH.  Returns (records {kernel: record at the path's shape},
+    launches)."""
+    import torch
+    label = "joint_theta"
+    model, x0s = joint_inputs(device)
+    dims = model[1]
+    n, m, T, p = (dims.max_state_dim, dims.max_control_dim,
+                  dims.num_edges, dims.theta_dim)
+    records = riccati_path_records(device, label, T, n, m, seed=90)
+
+    warm = joint_call(model, x0s, "cuda")
+    scan32 = joint_call(model, x0s, "scan")
+    model64, x64 = joint_inputs(device, torch.float64)
+    scan64 = joint_call(model64, x64, "scan")
+    for name, res in (("cuda", warm), ("scan", scan32),
+                      ("scan float64", scan64)):
+        th = res.vars.theta
+        log(f"solve [{label}] {name}: status SOLVED on "
+            f"{float((res.status == 0).float().mean()):.4f}, iterations "
+            f"{int(res.iterations[0])}, KKT error "
+            f"{float(res.kkt_error[0]):.3e}, theta {float(th[0, 0]):.7f}, "
+            f"bit-identical on every scenario {bool((th == th[:1]).all())}")
+    if not bool((warm.status == 0).all()):
+        raise AssertionError(f"{label}: not every scenario SOLVED")
+    if not bool((warm.vars.theta == warm.vars.theta[:1]).all()):
+        raise AssertionError(f"{label}: theta differs across scenarios")
+    err, detail = compare(label, "theta and controls",
+                          (warm.vars.theta, warm.vars.u),
+                          (scan32.vars.theta, scan32.vars.u), SOLVE_TOL,
+                          slice(None), (scan64.vars.theta, scan64.vars.u))
+    log(f"kernels vs scan [{label}]: max|cuda - scan| {err:.3e}{detail}")
+
+    settings = joint_settings("cuda")
+    times, want = [], {}
+    reset_counts()
+    for _ in range(JOINT["calls"]):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = joint_call(model, x0s, "cuda")
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+        # one joint problem: every scenario's iterations are the trips
+        for name, v in solver_launches(settings, int(res.iterations[0]),
+                                       p).items():
+            want[name] = want.get(name, 0) + v
+        if not bool((res.status == 0).all()):
+            raise AssertionError(f"{label}: a timed call did not solve")
+    launches = read_counts()
+    check_launches(label, launches, want)
+    best = min(times)
+    trips = int(res.iterations[0])
+    busy = kernel_busy_ms(records, launches) / JOINT["calls"]
+    log(f"path [{label}] ({smi}): S={BATCH} coupled scenarios, horizon "
+        f"{T}, theta_dim {p}: {trips} trips a solve; seconds per call "
+        f"(CUDA events) [{', '.join(f'{t:.4f}' for t in times)}]; best "
+        f"{best:.4f} s -> {BATCH / best:.1f} coupled scenarios/s, "
+        f"{1e3 * best / trips:.2f} ms per trip; the port's kernels "
+        f"{busy:.3f} ms of device time per solve")
+    log(json.dumps({label: {
+        "coupled_scenarios_per_s": BATCH / best, "solve_ms": 1e3 * best,
+        "trips": trips, "kernel_device_ms_per_solve": busy,
+        "theta": float(res.vars.theta[0, 0]), "max_err_vs_scan": err}}))
+    return records, launches
+
+
+# ---------------------------------------------------------------------------
 
 def build_all(device):
     """Phase 2: every kernel library of the paths and the fused check, one
     nvcc each, all started together."""
+    from sip_optimal_control_tpu_torch import build_problem
     from sip_optimal_control_tpu_torch.ops import (cuda_build, fused_iter,
                                                    ls_probe)
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
@@ -1329,6 +1735,11 @@ def build_all(device):
         fspec, fbounds, _ = prob.fused_ls
         jobs[f"ls_probe[{model}]"] = (
             lambda s=fspec, b=fbounds: ls_probe.build_library(s, b))
+    qmodel, qx = quad_inputs(device, batch=1)
+    quad = build_problem(*qmodel[:3], qx, *qmodel[3:])
+    jobs["ls_probe[quadrotor_mpc]"] = (
+        lambda s=quad.fused_ls[0], b=quad.fused_ls[1]:
+        ls_probe.build_library(s, b))
     for model in FUSED_MODELS:
         _, ispec, rows = fused_model(model, device)
         jobs[f"fused_iter[{model}]"] = (
@@ -1403,6 +1814,14 @@ def main():
     launches["robust_tree"] = res["launches"]
     phase_done("path robust_tree")
 
+    # phases 8 and 9: the counts set to 0 just before each path's measured
+    # run and read just after
+    path_records = {}
+    for label, run in (("quadrotor", run_quadrotor),
+                       ("joint_theta", run_joint_theta)):
+        path_records[label], launches[label] = run(device, smi)
+        phase_done(f"path {label}")
+
     rows = []
     for kname in ("riccati_factor", "riccati_factor_gram",
                   "riccati_solve_bwd", "riccati_solve_fwd", "ls_probe",
@@ -1415,8 +1834,19 @@ def main():
         rec["launches"] = launches[first + fused][kname]
         if "chain16" in rec:
             rec["chain16"]["launches"] = launches["chain16" + fused][kname]
-        if "quadrotor" in rec:         # the kernel check's model, no path
-            rec["quadrotor"]["launches"] = None
+        if "quadrotor" in rec:
+            # the fused kernels' quadrotor check: phase 8's path takes the
+            # standard iteration
+            rec["quadrotor"]["launches"] = launches["quadrotor"][kname]
+            rec["quadrotor"]["path"] = "quadrotor run_mpc (phase 8)"
+        # the standard iteration's kernels on phases 8 and 9, at each
+        # path's shape
+        for label, recs in path_records.items():
+            if kname in recs:
+                rec[label] = dict(recs[kname],
+                                  launches=launches[label][kname],
+                                  path=f"{label} (phase "
+                                  f"{8 if label == 'quadrotor' else 9})")
         rows.append(rec)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

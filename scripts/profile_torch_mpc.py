@@ -10,8 +10,12 @@ robust_tree path (scenario-tree robust MPC on the standard iteration: the
 tree LQR in plain PyTorch and the tree probe kernel) with the tree probe
 and with the standard probe, then both chain paths on the fused whole
 iteration (fused_iteration=True, the bench's default: the fused eval,
-factor and solve kernels and the probe).  ``--model`` profiles one path
-only; ``--fused`` only the fused iteration's paths.  For each path:
+factor and solve kernels and the probe), then chip_smoke's phase 8
+(quadrotor ``run_mpc``: convergence-tested re-solves on the Riccati
+kernels and the probe, profiled in its warm steps 21 on) and phase 9
+(the coupled joint-θ solve, S=4096, profiled per solve).  ``--model``
+profiles one path only; ``--fused`` only the fused iteration's paths.
+For each path:
 warm-up, a timed untraced run, then a few steps under torch.profiler;
 prints the wall time per step, the device's busy and idle share, the kernel
 launches per step, on the standard iteration the LQR's share of the ops
@@ -19,7 +23,8 @@ dispatched (one launch each), and the kernels that take the most device
 time.  Needs a CUDA GPU:
 
     python scripts/profile_torch_mpc.py [--steps 5] \
-        [--model cartpole|chain16|robust_tree] [--fused]
+        [--model cartpole|chain16|robust_tree|quadrotor|joint_theta]
+        [--fused]
 """
 
 import argparse
@@ -37,6 +42,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke  # noqa: E402  (the main path's settings and inputs)
+from sip_optimal_control_tpu_torch import mpc  # noqa: E402
 from sip_optimal_control_tpu_torch.ops import kkt  # noqa: E402
 
 
@@ -84,20 +90,18 @@ def _lqr_counted(counter):
         kkt.lqr_factor, kkt.lqr_solve = real
 
 
-def profile_path(model, state, steps, fused_probe, fused=False):
-    """Returns (state, untraced s per step, busy ms per step, launches per
-    step) and prints the breakdown."""
-    def run(st, n):
-        out = chip_smoke.mpc_call(model, st, "cuda", n, fused_probe, fused)
-        return (out.x, out.vars, out.y)
-
+def profile_run(run, state, steps, label, unit="MPC step", traced=2,
+                lqr_ops=True):
+    """Warm-up and timed untraced `steps` of `run(state, n) -> state`, then
+    `traced` more under torch.profiler.  Returns (state, untraced s per
+    unit, busy ms per unit, launches per unit, the traced kernels) and
+    prints the breakdown."""
     state = run(state, steps)                      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state = run(state, steps)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    traced = 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -108,21 +112,19 @@ def profile_path(model, state, steps, fused_probe, fused=False):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / traced / 1e3
     launches = sum(e.count for e in kernels) / traced
-    probe = f"{model[0]}, " + ("fused iteration" if fused else
-                               "fused probe" if fused_probe
-                               else "standard probe")
-    print(f"[{probe}] wall per MPC step: {step_s * 1e3:.2f} ms untraced "
+    print(f"[{label}] wall per {unit}: {step_s * 1e3:.2f} ms untraced "
           f"(mean of {steps}), {traced_s * 1e3:.2f} ms traced")
-    print(f"[{probe}] device busy per step {busy_ms:.2f} ms over "
+    print(f"[{label}] device busy per {unit} {busy_ms:.2f} ms over "
           f"{launches:.0f} kernel launches; idle share "
-          f"{1 - busy_ms / (step_s * 1e3):.3f} of the untraced step")
-    if not fused:
-        # the ops the standard iteration's LQR dispatches in one more step
+          f"{1 - busy_ms / (step_s * 1e3):.3f} of the untraced {unit}")
+    if lqr_ops:
+        # the ops the standard iteration's LQR dispatches in one more unit
         counter = _OpCount()
         with _lqr_counted(counter), counter:
             state = run(state, 1)
-        print(f"[{probe}] LQR factor + solve: {counter.lqr} of the "
-              f"{counter.total} ops dispatched in a step (one launch each)")
+        print(f"[{label}] LQR factor + solve: {counter.lqr} of the "
+              f"{counter.total} ops dispatched in a {unit} (one launch "
+              "each)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"  {e.self_device_time_total / traced / 1e3:8.3f} ms "
               f"{e.count / traced:7.0f}x  {e.key[:90]}")
@@ -131,9 +133,53 @@ def profile_path(model, state, steps, fused_probe, fused=False):
     for e in kernels:
         if e.key.startswith(("void riccati::", "void ls_probe::",
                              "void ls_probe_tree::", "void fused_iter::")):
-            print(f"  [{probe}] {e.key.split('(')[0][5:]}: "
+            print(f"  [{label}] {e.key.split('(')[0][5:]}: "
                   f"{e.self_device_time_total / e.count / 1e3:.4f} ms per "
-                  f"launch, {e.count / traced:.0f} launches per step")
+                  f"launch, {e.count / traced:.0f} launches per {unit}")
+    return state, step_s, busy_ms, launches, kernels
+
+
+def profile_quadrotor(device, steps, warm=20):
+    """chip_smoke phase 8's closed loop (run_mpc's step function on its
+    inputs and settings), profiled after `warm` untimed warm steps."""
+    model, x0s = chip_smoke.quad_inputs(device)
+    step, carry = mpc._closed_loop(*model[:3], x0s,
+                                   chip_smoke.quad_settings("cuda"),
+                                   *model[3:], None, True, True, 1e2)
+
+    def run(c, n):
+        for _ in range(n):
+            c, _ = step(c)
+        return c
+
+    carry = run(carry, warm)
+    profile_run(run, carry, steps, f"quadrotor run_mpc, steps {warm + 1} on")
+
+
+def profile_joint_theta(device):
+    """chip_smoke phase 9's coupled solve, one solve per unit."""
+    model, x0s = chip_smoke.joint_inputs(device)
+
+    def run(state, n):
+        for _ in range(n):
+            chip_smoke.joint_call(model, x0s, "cuda")
+        return state
+
+    profile_run(run, None, 1, "joint_theta", unit="solve", traced=1)
+
+
+def profile_path(model, state, steps, fused_probe, fused=False):
+    """Returns (state, untraced s per step, busy ms per step, launches per
+    step) and prints the breakdown."""
+    def run(st, n):
+        out = chip_smoke.mpc_call(model, st, "cuda", n, fused_probe, fused)
+        return (out.x, out.vars, out.y)
+
+    probe = f"{model[0]}, " + ("fused iteration" if fused else
+                               "fused probe" if fused_probe
+                               else "standard probe")
+    state, step_s, busy_ms, launches, _ = profile_run(
+        run, state, steps, probe, lqr_ops=not fused)
     return state, step_s, busy_ms, launches
 
 
@@ -141,8 +187,9 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=5,
                         help="untimed warm-up and timed steps")
-    parser.add_argument("--model", choices=sorted(chip_smoke.PATHS),
-                        default=None, help="profile this path only")
+    parser.add_argument("--model", choices=sorted(chip_smoke.PATHS) + [
+                        "joint_theta", "quadrotor"], default=None,
+                        help="profile this path only")
     parser.add_argument("--fused", action="store_true",
                         help="profile the fused iteration's paths only")
     args = parser.parse_args()
@@ -179,6 +226,10 @@ def main():
         if want(name):
             model, state = chip_smoke.main_path_inputs(device, model=name)
             profile_path(model, state, args.steps, True, fused=True)
+    if not args.fused and want("quadrotor"):
+        profile_quadrotor(device, args.steps)
+    if not args.fused and want("joint_theta"):
+        profile_joint_theta(device)
     return 0
 
 

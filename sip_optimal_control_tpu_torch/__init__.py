@@ -3,7 +3,8 @@
 A port of ``sip_optimal_control_tpu`` (JAX on a TPU) to PyTorch with
 hand-written CUDA kernels for an NVIDIA H100: the stagewise interior-point
 solver, the dual-regularized chain-LQR Riccati factor/solve, KKT
-condensation, the autodiff model front door and batched warm-started MPC.
+condensation with the θ Schur step, the autodiff model front door, the
+coupled shared-θ solve and batched warm-started MPC.
 The scenario batch is an explicit leading axis of every tensor.  This
 package never imports JAX; the JAX package is the reference its tests hold
 it to.
@@ -18,7 +19,8 @@ from .ops.lqr import (LQRData, LQRFactorization, LQRSolution, lqr_factor,
 from .solver import (OCProblem, Primal, Settings, SIPStatus, SolveResult,
                      YVec, ZVec, solve)
 from .model import ModelSpec, box_bounds, build_problem
-from .mpc import MPCSteps, mpc_steps
+from .mpc import MPCSteps, MPCTrace, mpc_steps, run_mpc, run_mpc_timed
+from .parallel import solve_joint_theta
 from .interop import from_jax_numpy
 
 __version__ = "0.1.0"

@@ -15,8 +15,9 @@ residual is initial_state - x_root
 
 The scenario batch is the leading axis of ``initial_state`` ([B, n]) and of
 every tensor the problem's evaluators take and return.  Any rooted tree
-(a chain, or a scenario tree whose edges share parents); theta_dim = 0
-only, so far.
+(a chain, or a scenario tree whose edges share parents).  θ (theta_dim
+p > 0) is a per-scenario vector [B, p] handed to every stage function;
+its derivative blocks fill StageModelData's θ fields.
 """
 
 from __future__ import annotations
@@ -217,8 +218,6 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     ``fused_model``: ``fused_probe_model``'s result for these stage
     functions, bounds and ``hessian_mode``, from a caller that rebuilds the
     problem every step; None works it out here."""
-    if dims.theta_dim:
-        raise NotImplementedError("theta_dim > 0 is not ported yet")
     if hessian_mode not in ("exact", "gauss_newton"):
         raise ValueError(f"unknown hessian_mode {hessian_mode!r}")
     sched = compile_topology(topology)
@@ -226,6 +225,7 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     N, E = dims.num_nodes, dims.num_edges
     n = max(dims.max_state_dim, 1)
     m = max(dims.max_control_dim, 1)
+    p = dims.theta_dim
     cn, ce = dims.max_node_c_dim, dims.max_edge_c_dim
     gn, ge = dims.max_node_g_dim, dims.max_edge_g_dim
 
@@ -239,7 +239,8 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     batch = x0.shape[0]
     parent, child = edge_nodes(sched, device)
     masks = _device_masks(dims, device)
-    th = torch.zeros(0, dtype=dtype, device=device)
+    # θ of the rollout init (and every θ when p = 0): zeros, unmapped
+    th = torch.zeros(p, dtype=dtype, device=device)
     node_ids = torch.arange(N, device=device)
     edge_ids = torch.arange(E, device=device)
 
@@ -262,13 +263,23 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     def ids(idx, like):
         return idx.expand(like.shape[:-1])
 
-    def node_map(fn, x, *extra):
-        return _map_stages(fn, (x, ids(node_ids, x)) + extra, (th,))
+    def stage_args(theta, like):
+        # θ [*L, p] goes to every stage as a mapped argument [*L, S, p];
+        # with p = 0 it stays one unmapped empty tensor
+        if p == 0:
+            return (), (th,)
+        return (theta[..., None, :].expand(like.shape[:-1] + (p,)),), ()
 
-    def edge_map(fn, xp, u, *extra):
-        return _map_stages(fn, (xp, u, ids(edge_ids, u)) + extra, (th,))
+    def node_map(fn, x, theta, *extra):
+        mapped, shared = stage_args(theta, x)
+        return _map_stages(fn, (x, ids(node_ids, x)) + extra + mapped, shared)
 
-    # per-stage functions with theta moved last (the unmapped argument)
+    def edge_map(fn, xp, u, theta, *extra):
+        mapped, shared = stage_args(theta, u)
+        return _map_stages(fn, (xp, u, ids(edge_ids, u)) + extra + mapped,
+                           shared)
+
+    # per-stage functions with theta moved last
     def node_fn(f):
         return lambda x, i, *rest: f(x, rest[-1], i, *rest[:-1])
 
@@ -282,17 +293,18 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
     # new_x=false path, sip_optimal_control.cpp:47-53).  Any leading axes.
     def eval_fcg(vars: Primal):
         x_par = vars.x[..., parent, :]
-        f = (node_map(node_fn(node_cost), vars.x).sum(-1)
-             + edge_map(edge_fn(edge_cost), x_par, vars.u).sum(-1))
-        dyn_res = edge_map(edge_fn(spec.dynamics), x_par, vars.u) \
+        th_ = vars.theta
+        f = (node_map(node_fn(node_cost), vars.x, th_).sum(-1)
+             + edge_map(edge_fn(edge_cost), x_par, vars.u, th_).sum(-1))
+        dyn_res = edge_map(edge_fn(spec.dynamics), x_par, vars.u, th_) \
             - vars.x[..., child, :]
-        nc = (node_map(node_fn(spec.node_eq), vars.x) if spec.node_eq
+        nc = (node_map(node_fn(spec.node_eq), vars.x, th_) if spec.node_eq
               else zeros(N, cn, like=vars.x[..., 0, :]))
-        gnv = (node_map(node_fn(spec.node_ineq), vars.x) if spec.node_ineq
-               else zeros(N, gn, like=vars.x[..., 0, :]))
-        ec = (edge_map(edge_fn(spec.edge_eq), x_par, vars.u) if spec.edge_eq
-              else zeros(E, ce, like=vars.x[..., 0, :]))
-        gev = (edge_map(edge_fn(spec.edge_ineq), x_par, vars.u)
+        gnv = (node_map(node_fn(spec.node_ineq), vars.x, th_)
+               if spec.node_ineq else zeros(N, gn, like=vars.x[..., 0, :]))
+        ec = (edge_map(edge_fn(spec.edge_eq), x_par, vars.u, th_)
+              if spec.edge_eq else zeros(E, ce, like=vars.x[..., 0, :]))
+        gev = (edge_map(edge_fn(spec.edge_ineq), x_par, vars.u, th_)
                if spec.edge_ineq else zeros(E, ge, like=vars.x[..., 0, :]))
         root_res = x0 - vars.x[..., root, :]
         if not uniform:
@@ -323,78 +335,96 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
             out = out + torch.dot(z_e, spec.edge_ineq(xp, u, th_, i))
         return out
 
+    # derivatives w.r.t. the node (x) / edge (x_parent, u) arguments, and
+    # θ's too when p > 0 (θ is argument 1 of a node function, 2 of an
+    # edge function)
+    nargs = (0, 1) if p else (0,)
+    eargs = (0, 1, 2) if p else (0, 1)
     if hessian_mode == "gauss_newton":
         node_hess = hessian(
-            lambda x, th_, i, y_nc, z_n: node_cost(x, th_, i), argnums=0)
+            lambda x, th_, i, y_nc, z_n: node_cost(x, th_, i), argnums=nargs)
         edge_hess = hessian(
             lambda xp, u, th_, i, y_dyn, y_ec, z_e: edge_cost(xp, u, th_, i),
-            argnums=(0, 1))
+            argnums=eargs)
     else:
-        node_hess = hessian(node_lagrangian, argnums=0)
-        edge_hess = hessian(edge_lagrangian, argnums=(0, 1))
+        node_hess = hessian(node_lagrangian, argnums=nargs)
+        edge_hess = hessian(edge_lagrangian, argnums=eargs)
 
-    def jac_node(f, x, rows):
+    def jac_node(f, x, theta, rows):
         if f is None:
-            return zeros(N, rows, n, like=x[..., 0, :])
-        return node_map(node_fn(jacfwd(f, argnums=0)), x)
+            return tuple(zeros(N, rows, d, like=x[..., 0, :])
+                         for d in (n, p)[:len(nargs)])
+        return node_map(node_fn(jacfwd(f, argnums=nargs)), x, theta)
 
-    def jac_edge(f, xp, u, rows):
+    def jac_edge(f, xp, u, theta, rows):
         if f is None:
-            return (zeros(E, rows, n, like=xp[..., 0, :]),
-                    zeros(E, rows, m, like=xp[..., 0, :]))
-        return edge_map(edge_fn(jacfwd(f, argnums=(0, 1))), xp, u)
+            return tuple(zeros(E, rows, d, like=xp[..., 0, :])
+                         for d in (n, m, p)[:len(eargs)])
+        return edge_map(edge_fn(jacfwd(f, argnums=eargs)), xp, u, theta)
 
     def eval_model(vars: Primal, y: YVec, z: ZVec) -> ModelEval:
         x_par = vars.x[:, parent]
         y_dyn_child = y.dyn[:, child]
+        th_ = vars.theta
 
         f, c, g = eval_fcg(vars)
 
         # first derivatives of the objective
-        dnc = node_map(node_fn(grad(node_cost, argnums=0)), vars.x)
-        dec = edge_map(edge_fn(grad(edge_cost, argnums=(0, 1))), x_par,
-                       vars.u)
-        grad_x = add_at_nodes(dnc, parent, dec[0])
+        dnc = node_map(node_fn(grad(node_cost, argnums=nargs)), vars.x, th_)
+        dec = edge_map(edge_fn(grad(edge_cost, argnums=eargs)), x_par,
+                       vars.u, th_)
+        grad_x = add_at_nodes(dnc[0], parent, dec[0])
         grad_u = dec[1]
         if not uniform:
             grad_x, grad_u = grad_x * sm, grad_u * cm
-        grad_p = Primal(x=grad_x, u=grad_u, theta=vars.theta.new_zeros(
-            vars.theta.shape))
+        grad_th = (dnc[1].sum(1) + dec[2].sum(1) if p
+                   else th_.new_zeros(th_.shape))
+        grad_p = Primal(x=grad_x, u=grad_u, theta=grad_th)
 
         # constraint Jacobians
-        A, B = edge_map(edge_fn(jacfwd(spec.dynamics, argnums=(0, 1))),
-                        x_par, vars.u)
-        Jc_n = jac_node(spec.node_eq, vars.x, cn)
-        Jg_n = jac_node(spec.node_ineq, vars.x, gn)
-        Jc_e = jac_edge(spec.edge_eq, x_par, vars.u, ce)
-        Jg_e = jac_edge(spec.edge_ineq, x_par, vars.u, ge)
+        dyn_jac = edge_map(edge_fn(jacfwd(spec.dynamics, argnums=eargs)),
+                           x_par, vars.u, th_)
+        Jc_n = jac_node(spec.node_eq, vars.x, th_, cn)
+        Jg_n = jac_node(spec.node_ineq, vars.x, th_, gn)
+        Jc_e = jac_edge(spec.edge_eq, x_par, vars.u, th_, ce)
+        Jg_e = jac_edge(spec.edge_ineq, x_par, vars.u, th_, ge)
 
         # Lagrangian Hessian blocks
-        Hn = node_map(node_fn(node_hess), vars.x, y.nc, z.n)
-        He = edge_map(edge_fn(edge_hess), x_par, vars.u, y_dyn_child, y.ec,
-                      z.e)
+        Hn = node_map(node_fn(node_hess), vars.x, th_, y.nc, z.n)
+        He = edge_map(edge_fn(edge_hess), x_par, vars.u, th_, y_dyn_child,
+                      y.ec, z.e)
 
         def p0(*shape):
             return vars.x.new_zeros((batch,) + shape + (0,))
 
+        if p:
+            theta_blocks = dict(
+                df_dtheta_node=dnc[1], df_dtheta_edge=dec[2],
+                ddyn_dtheta=dyn_jac[2],
+                Jc_th_node=Jc_n[1], Jc_th_edge=Jc_e[2],
+                Jg_th_node=Jg_n[1], Jg_th_edge=Jg_e[2],
+                Hxth_node=Hn[0][1], Hxth_edge=He[0][2], Huth_edge=He[1][2],
+                Hthth_node=Hn[1][1], Hthth_edge=He[2][2])
+        else:
+            theta_blocks = dict(
+                df_dtheta_node=p0(N), df_dtheta_edge=p0(E),
+                ddyn_dtheta=p0(E, n),
+                Jc_th_node=p0(N, cn), Jc_th_edge=p0(E, ce),
+                Jg_th_node=p0(N, gn), Jg_th_edge=p0(E, ge),
+                Hxth_node=p0(N, n), Hxth_edge=p0(E, n), Huth_edge=p0(E, m),
+                Hthth_node=p0(N, 0), Hthth_edge=p0(E, 0))
         stage = StageModelData(
             f_node=vars.x.new_zeros(batch, N),
             f_edge=vars.x.new_zeros(batch, E),
-            df_dx_node=dnc, df_dx_edge=dec[0], df_du=dec[1],
+            df_dx_node=dnc[0], df_dx_edge=dec[0], df_du=dec[1],
             dyn_res=c.dyn[:, child],
-            A=A, B=B,
-            c_node=c.nc, Jc_x_node=Jc_n,
+            A=dyn_jac[0], B=dyn_jac[1],
+            c_node=c.nc, Jc_x_node=Jc_n[0],
             c_edge=c.ec, Jc_x_edge=Jc_e[0], Jc_u_edge=Jc_e[1],
-            g_node=g.n, Jg_x_node=Jg_n,
+            g_node=g.n, Jg_x_node=Jg_n[0],
             g_edge=g.e, Jg_x_edge=Jg_e[0], Jg_u_edge=Jg_e[1],
-            Hxx_node=Hn, Hxx_edge=He[0][0], Hxu_edge=He[0][1],
-            Huu_edge=He[1][1],
-            df_dtheta_node=p0(N), df_dtheta_edge=p0(E),
-            ddyn_dtheta=p0(E, n),
-            Jc_th_node=p0(N, cn), Jc_th_edge=p0(E, ce),
-            Jg_th_node=p0(N, gn), Jg_th_edge=p0(E, ge),
-            Hxth_node=p0(N, n), Hxth_edge=p0(E, n), Huth_edge=p0(E, m),
-            Hthth_node=p0(N, 0), Hthth_edge=p0(E, 0))
+            Hxx_node=Hn[0][0], Hxx_edge=He[0][0], Hxu_edge=He[0][1],
+            Huu_edge=He[1][1], **theta_blocks)
 
         if not uniform:
             # zero every derivative row/column beyond the stage's declared
@@ -402,6 +432,9 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
             # reference's per-stage blocks
             def m2(a, r, c_):
                 return a * r[..., :, None] * c_[..., None, :]
+
+            def mrow(a, r):
+                return a * r[..., None]
             stage = dataclasses.replace(
                 stage,
                 df_dx_node=stage.df_dx_node * sm,
@@ -418,7 +451,15 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
                 Hxx_node=m2(stage.Hxx_node, sm, sm),
                 Hxx_edge=m2(stage.Hxx_edge, sm_par, sm_par),
                 Hxu_edge=m2(stage.Hxu_edge, sm_par, cm),
-                Huu_edge=m2(stage.Huu_edge, cm, cm))
+                Huu_edge=m2(stage.Huu_edge, cm, cm),
+                ddyn_dtheta=mrow(stage.ddyn_dtheta, sm_child),
+                Jc_th_node=mrow(stage.Jc_th_node, ncm),
+                Jc_th_edge=mrow(stage.Jc_th_edge, ecm),
+                Jg_th_node=mrow(stage.Jg_th_node, ngm),
+                Jg_th_edge=mrow(stage.Jg_th_edge, egm),
+                Hxth_node=mrow(stage.Hxth_node, sm),
+                Hxth_edge=mrow(stage.Hxth_edge, sm_par),
+                Huth_edge=mrow(stage.Huth_edge, cm))
 
         return ModelEval(f=f, grad=grad_p, c=c, g=g, stage=stage)
 
@@ -435,7 +476,7 @@ def build_problem(spec: ModelSpec, dims: Dimensions, topology: Topology,
             xs.append(x_prev)
         x_init = torch.stack(xs, dim=1)
     default_init = Primal(x=x_init.contiguous(), u=x0.new_zeros(batch, E, m),
-                          theta=x0.new_zeros(batch, 0))
+                          theta=x0.new_zeros(batch, p))
 
     # the fused probe's and the fused iteration's payloads (None when
     # ineligible)

@@ -1,9 +1,8 @@
 """Newton-KKT condensation, multiplier recovery and KKT operators.
 
-PyTorch port of ``sip_optimal_control_tpu/ops/kkt.py`` without the θ-Schur
-path (theta_dim > 0 raises NotImplementedError).  The full regularized
-Newton-KKT operator over (x, y, z) with regularizations (r1, r2, r3) and
-barrier weights w (reference: helpers.cpp:953-977):
+PyTorch port of ``sip_optimal_control_tpu/ops/kkt.py``.  The full
+regularized Newton-KKT operator over (x, θ, y, z) with regularizations
+(r1, r2, r3) and barrier weights w (reference: helpers.cpp:953-977):
 
     K = [[ H + diag(r1),  C^T,        G^T        ],
          [ C,            -diag(r2),   0          ],
@@ -15,8 +14,14 @@ barrier weights w (reference: helpers.cpp:953-977):
     Q_mod = d2L/dx2 + diag(r1_x) + Jc^T diag(1/r2) Jc + Jg^T diag(1/(w+r3)) Jg
     R_mod, M_mod analogously; LQR delta = r2 of the dynamics rows,
 
-leaving the tree-LQR system in (x, u, y_dyn).  Every tensor leads with the
-scenario batch axis; masks and index sets are shared by all scenarios.
+leaving the tree-LQR system in (x, u, y_dyn), then (θ_dim p > 0)
+Schur-eliminates θ against the stagewise system (reference:
+helpers.cpp:372-407): p stagewise solves of the θ columns, one per
+column and each over the whole batch, then a p x p Cholesky.  Every tensor
+leads with the scenario batch axis; masks and index sets are shared by all
+scenarios.  With ``coupled`` the batch's scenarios share one θ: the Schur
+complement and the θ right-hand side are summed over the batch and the
+p x p system is factored and solved once.
 Edges gather their parent and child nodes through ``types.edge_nodes``
 (slices on a chain, index tensors on other trees) and scatter back to the
 parents with ``types.add_at_nodes``, which sums over the several edges
@@ -26,15 +31,16 @@ that leave one node of a tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..types import (Dimensions, FactorStatus, TopologySchedule,
                      add_at_nodes, edge_nodes)
-from .lqr import (LQRData, LQRFactorization, _mv, _tmv, lqr_factor,
-                  lqr_solve)
+from .linalg import cho_solve, cholesky_with_ok
+from .lqr import (LQRData, LQRFactorization, _merge_status, _mv, _tmv,
+                  lqr_factor, lqr_solve)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +51,7 @@ class StageModelData:
 
     Node terms depend only on the node state (+ theta); edge terms on the
     parent state, the control (+ theta).  The dynamics child-Jacobian is the
-    fixed -I (reference: types.hpp:63-65).  The theta blocks exist with
-    p = 0 (the θ-Schur path is not ported).
+    fixed -I (reference: types.hpp:63-65).
     """
 
     # objective
@@ -76,7 +81,7 @@ class StageModelData:
     Hxx_edge: torch.Tensor        # [B, E, n, n]
     Hxu_edge: torch.Tensor        # [B, E, n, m]
     Huu_edge: torch.Tensor        # [B, E, m, m]
-    # theta blocks ([..., p] with p = 0)
+    # theta blocks ([..., p]; p may be 0)
     df_dtheta_node: torch.Tensor  # [B, N, p]
     df_dtheta_edge: torch.Tensor  # [B, E, p]
     ddyn_dtheta: torch.Tensor     # [B, E, n, p]
@@ -173,6 +178,10 @@ class KKTFactorization(NamedTuple):
     n_w_inv: torch.Tensor         # [B, N, gn]
     e_w_inv: torch.Tensor         # [B, E, ge]
     status: torch.Tensor          # [B] int32
+    # θ-Schur path (None when p == 0): K^{-1} J_θ as a KKTVector whose
+    # leaves are [B, p, ...], and the Cholesky factor of S_θ [B, p, p]
+    theta_solution: Optional[KKTVector] = None
+    theta_schur_chol: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,12 +236,6 @@ def _safe_inv(v, mask):
             _lane_all((v > 0) | ~live))
 
 
-def _require_no_theta(model: StageModelData) -> None:
-    if model.Hthth_node.shape[-1] != 0:
-        raise NotImplementedError(
-            "theta_dim > 0: the θ-Schur path is not ported yet")
-
-
 def _wjj(J, winv):
     """J^T diag(winv) J over the leading axes."""
     return torch.einsum("...ki,...k,...kj->...ij", J, winv, J)
@@ -250,11 +253,18 @@ def _mask_sym(Qm, mask):
 
 def kkt_factor(model: StageModelData, regs: Regularizations,
                masks: ConstraintMasks, sched: TopologySchedule,
-               backend: str = "scan") -> KKTFactorization:
-    """Condense + LQR-factor.  Reference: CallbackProvider::factor
-    (helpers.cpp:242-408).  ``backend`` selects the chain Riccati
-    implementation (see ops.lqr.lqr_factor); trees ignore it."""
-    _require_no_theta(model)
+               backend: str = "scan",
+               coupled: bool = False) -> KKTFactorization:
+    """Condense + LQR-factor (+ θ Schur).  Reference:
+    CallbackProvider::factor (helpers.cpp:242-408).  ``backend`` selects
+    the chain Riccati implementation (see ops.lqr.lqr_factor); trees
+    ignore it.
+
+    ``coupled``: the batch's scenarios share ONE θ (JAX's ``axis_names``).
+    Each scenario's θ quantities are contributions to the joint system:
+    S_θ = sum over the batch of (sum d2L/dθ2 + diag(r1_θ) - J_θ^T K^-1 J_θ)
+    is factored once and the factor broadcast to every scenario (the
+    caller counts lane-replicated terms such as r1_θ on one scenario)."""
     like = model.Hxx_node
     parent, child = edge_nodes(sched, like.device)
     dtype = like.dtype
@@ -307,10 +317,91 @@ def kkt_factor(model: StageModelData, regs: Regularizations,
     lqr_fact = lqr_factor(lqr_data, sched, backend)
     status = torch.where(weights_ok, lqr_fact.status,
                          int(FactorStatus.INVALID_DELTA)).to(torch.int32)
-    return KKTFactorization(
+    fact = KKTFactorization(
         lqr_data=lqr_data, lqr_fact=lqr_fact,
         nc_r2_inv=nc_r2_inv, ec_r2_inv=ec_r2_inv,
         n_w_inv=n_w_inv, e_w_inv=e_w_inv, status=status)
+    p = model.Hthth_node.shape[-1]
+    if p == 0:
+        return fact
+
+    # --- θ Schur path (reference: helpers.cpp:372-407): one stagewise
+    # solve per θ column, each over the whole batch ------------------------
+    cols = _theta_jacobian_columns(model, sched)
+    k_inv_j = _stack_columns([
+        _solve_stagewise(fact, model, _column(cols, j), sched, backend)
+        for j in range(p)])
+    s_theta = (model.Hthth_node.sum(1) + model.Hthth_edge.sum(1)
+               + torch.diag_embed(regs.r1_th) - _theta_dot(cols, k_inv_j))
+    if coupled:
+        # one joint p x p system, factored once for every scenario
+        s_chol, s_ok = cholesky_with_ok(s_theta.sum(0))
+        s_chol = s_chol.expand(s_theta.shape)
+        s_ok = s_ok.expand(status.shape)
+    else:
+        s_chol, s_ok = cholesky_with_ok(s_theta)
+    status = _merge_status(status, torch.where(
+        s_ok, int(FactorStatus.SUCCESS),
+        int(FactorStatus.G_FACTORIZATION_FAILURE)).to(torch.int32))
+    return fact._replace(theta_solution=k_inv_j, theta_schur_chol=s_chol,
+                         status=status)
+
+
+def _theta_jacobian_columns(model: StageModelData,
+                            sched: TopologySchedule) -> KKTVector:
+    """The θ coupling Jacobian J_θ as a KKTVector whose leaves are
+    [B, p, ...]: column j is the stagewise vector of θ_j's cross terms
+    (reference: form_theta_jacobian, helpers.cpp:190-240)."""
+    parent, child = edge_nodes(sched, model.A.device)
+    B, p = model.Hthth_node.shape[0], model.Hthth_node.shape[-1]
+
+    def cols(a):              # [B, S, ..., p] -> [B, p, S, ...]
+        return torch.movedim(a, -1, 1)
+
+    y_dyn = torch.zeros_like(model.Hxth_node)
+    y_dyn[:, child] = model.ddyn_dtheta
+    return KKTVector(
+        x=cols(add_at_nodes(model.Hxth_node, parent, model.Hxth_edge)),
+        u=cols(model.Huth_edge),
+        theta=model.Hthth_node.new_zeros(B, p, p), y_dyn=cols(y_dyn),
+        y_nc=cols(model.Jc_th_node), y_ec=cols(model.Jc_th_edge),
+        z_n=cols(model.Jg_th_node), z_e=cols(model.Jg_th_edge))
+
+
+def _column(cols: KKTVector, j: int) -> KKTVector:
+    """Column j of a [B, p, ...] KKTVector as a [B, ...] one."""
+    return KKTVector(**{f.name: getattr(cols, f.name)[:, j]
+                        for f in dataclasses.fields(cols)})
+
+
+def _stack_columns(vecs) -> KKTVector:
+    return KKTVector(**{f.name: torch.stack([getattr(v, f.name) for v in vecs],
+                                            dim=1)
+                        for f in dataclasses.fields(vecs[0])})
+
+
+_STAGEWISE = ("x", "u", "y_dyn", "y_nc", "y_ec", "z_n", "z_e")
+
+
+def _theta_dot(a: KKTVector, b: KKTVector) -> torch.Tensor:
+    """J^T K^-1 J over the stagewise components: [B, p, ...] x [B, p, ...]
+    -> [B, p, p] (θ components excluded: they are zero in J_θ)."""
+    total = 0.0
+    for name in _STAGEWISE:
+        fa = getattr(a, name).flatten(2)
+        fb = getattr(b, name).flatten(2)
+        total = total + fa @ fb.transpose(-1, -2)
+    return total
+
+
+def _theta_vec_dot(cols: KKTVector, v: KKTVector) -> torch.Tensor:
+    """J_θ^T v for a stagewise v -> [B, p]."""
+    total = 0.0
+    for name in _STAGEWISE:
+        fc = getattr(cols, name).flatten(2)
+        fv = getattr(v, name).flatten(1)
+        total = total + (fc @ fv[..., None])[..., 0]
+    return total
 
 
 def _solve_stagewise(fact: KKTFactorization, model: StageModelData,
@@ -352,11 +443,30 @@ def _solve_stagewise(fact: KKTFactorization, model: StageModelData,
 
 
 def kkt_solve(fact: KKTFactorization, model: StageModelData, b: KKTVector,
-              sched: TopologySchedule, backend: str = "scan") -> KKTVector:
-    """Full KKT solve (reference: CallbackProvider::solve,
-    helpers.cpp:896-951), θ-free."""
-    _require_no_theta(model)
-    return _solve_stagewise(fact, model, b, sched, backend)
+              sched: TopologySchedule, backend: str = "scan",
+              coupled: bool = False) -> KKTVector:
+    """Full KKT solve incl. θ back-substitution (reference:
+    CallbackProvider::solve, helpers.cpp:896-951).
+
+    ``coupled`` (one θ shared by the batch): ``b.theta`` holds each
+    scenario's contribution to the joint θ right-hand side; the reduced
+    right-hand side is summed over the batch, solved once, and the same dθ
+    is back-substituted into every scenario's stagewise solution."""
+    sol = _solve_stagewise(fact, model, b, sched, backend)
+    if b.theta.shape[-1] == 0:
+        return sol
+    cols = _theta_jacobian_columns(model, sched)
+    theta_rhs = b.theta - _theta_vec_dot(cols, sol)
+    if coupled:
+        dtheta = cho_solve(fact.theta_schur_chol[0], theta_rhs.sum(0))
+        dtheta = dtheta.expand(theta_rhs.shape)
+    else:
+        dtheta = cho_solve(fact.theta_schur_chol, theta_rhs)
+    correction = KKTVector(**{
+        f.name: torch.einsum("bp,bp...->b...", dtheta,
+                             getattr(fact.theta_solution, f.name))
+        for f in dataclasses.fields(sol)})
+    return dataclasses.replace(sol - correction, theta=dtheta)
 
 
 # ---------------------------------------------------------------------------
@@ -368,21 +478,30 @@ def apply_H(model: StageModelData, v: KKTVector,
             sched: TopologySchedule) -> KKTVector:
     """y += H x on primal components (reference: add_Hx_to_y,
     helpers.cpp:979-1068)."""
-    _require_no_theta(model)
     parent, _ = edge_nodes(sched, v.x.device)
     x_par = v.x[:, parent]
     out_x = add_at_nodes(_mv(model.Hxx_node, v.x), parent,
                          _mv(model.Hxx_edge, x_par)
                          + _mv(model.Hxu_edge, v.u))
     out_u = _tmv(model.Hxu_edge, x_par) + _mv(model.Huu_edge, v.u)
-    return dataclasses.replace(zero_like(v), x=out_x, u=out_u)
+    out_th = torch.zeros_like(v.theta)
+    if v.theta.shape[-1]:
+        th = v.theta[:, None]
+        out_x = add_at_nodes(out_x + _mv(model.Hxth_node, th), parent,
+                             _mv(model.Hxth_edge, th))
+        out_u = out_u + _mv(model.Huth_edge, th)
+        out_th = (torch.einsum("bNnp,bNn->bp", model.Hxth_node, v.x)
+                  + torch.einsum("bEnp,bEn->bp", model.Hxth_edge, x_par)
+                  + torch.einsum("bEmp,bEm->bp", model.Huth_edge, v.u)
+                  + _mv(model.Hthth_node.sum(1) + model.Hthth_edge.sum(1),
+                        v.theta))
+    return dataclasses.replace(zero_like(v), x=out_x, u=out_u, theta=out_th)
 
 
 def apply_C(model: StageModelData, v: KKTVector,
             sched: TopologySchedule) -> KKTVector:
     """Equality-Jacobian product: rows (root, dynamics, node c, edge c)
     (reference: add_Cx_to_y, helpers.cpp:1070-1159)."""
-    _require_no_theta(model)
     parent, child = edge_nodes(sched, v.x.device)
     root = sched.topology.root
     x_par = v.x[:, parent]
@@ -394,6 +513,11 @@ def apply_C(model: StageModelData, v: KKTVector,
                        - v.x[:, child])
     y_nc = _mv(model.Jc_x_node, v.x)
     y_ec = _mv(model.Jc_x_edge, x_par) + _mv(model.Jc_u_edge, v.u)
+    if v.theta.shape[-1]:
+        th = v.theta[:, None]
+        y_dyn[:, child] += _mv(model.ddyn_dtheta, th)
+        y_nc = y_nc + _mv(model.Jc_th_node, th)
+        y_ec = y_ec + _mv(model.Jc_th_edge, th)
     return dataclasses.replace(zero_like(v), y_dyn=y_dyn, y_nc=y_nc,
                                y_ec=y_ec)
 
@@ -402,7 +526,6 @@ def apply_CT(model: StageModelData, v: KKTVector,
              sched: TopologySchedule) -> KKTVector:
     """Transpose equality product (reference: add_CTx_to_y,
     helpers.cpp:1161-1250)."""
-    _require_no_theta(model)
     parent, child = edge_nodes(sched, v.x.device)
     root = sched.topology.root
     dyn_child = v.y_dyn[:, child]
@@ -413,18 +536,27 @@ def apply_CT(model: StageModelData, v: KKTVector,
                          + _tmv(model.Jc_x_edge, v.y_ec))
     out_x = add_at_nodes(out_x, child, -dyn_child)
     out_u = _tmv(model.B, dyn_child) + _tmv(model.Jc_u_edge, v.y_ec)
-    return dataclasses.replace(zero_like(v), x=out_x, u=out_u)
+    out_th = torch.zeros_like(v.theta)
+    if v.theta.shape[-1]:
+        out_th = (torch.einsum("bNcp,bNc->bp", model.Jc_th_node, v.y_nc)
+                  + torch.einsum("bEnp,bEn->bp", model.ddyn_dtheta,
+                                 dyn_child)
+                  + torch.einsum("bEcp,bEc->bp", model.Jc_th_edge, v.y_ec))
+    return dataclasses.replace(zero_like(v), x=out_x, u=out_u, theta=out_th)
 
 
 def apply_G(model: StageModelData, v: KKTVector,
             sched: TopologySchedule) -> KKTVector:
     """Inequality-Jacobian product (reference: add_Gx_to_y,
     helpers.cpp:1252-1309)."""
-    _require_no_theta(model)
     parent, _ = edge_nodes(sched, v.x.device)
     x_par = v.x[:, parent]
     z_n = _mv(model.Jg_x_node, v.x)
     z_e = _mv(model.Jg_x_edge, x_par) + _mv(model.Jg_u_edge, v.u)
+    if v.theta.shape[-1]:
+        th = v.theta[:, None]
+        z_n = z_n + _mv(model.Jg_th_node, th)
+        z_e = z_e + _mv(model.Jg_th_edge, th)
     return dataclasses.replace(zero_like(v), z_n=z_n, z_e=z_e)
 
 
@@ -432,12 +564,15 @@ def apply_GT(model: StageModelData, v: KKTVector,
              sched: TopologySchedule) -> KKTVector:
     """Transpose inequality product (reference: add_GTx_to_y,
     helpers.cpp:1311-1368)."""
-    _require_no_theta(model)
     parent, _ = edge_nodes(sched, v.x.device)
     out_x = add_at_nodes(_tmv(model.Jg_x_node, v.z_n), parent,
                          _tmv(model.Jg_x_edge, v.z_e))
     out_u = _tmv(model.Jg_u_edge, v.z_e)
-    return dataclasses.replace(zero_like(v), x=out_x, u=out_u)
+    out_th = torch.zeros_like(v.theta)
+    if v.theta.shape[-1]:
+        out_th = (torch.einsum("bNgp,bNg->bp", model.Jg_th_node, v.z_n)
+                  + torch.einsum("bEgp,bEg->bp", model.Jg_th_edge, v.z_e))
+    return dataclasses.replace(zero_like(v), x=out_x, u=out_u, theta=out_th)
 
 
 def apply_K(model: StageModelData, regs: Regularizations, v: KKTVector,

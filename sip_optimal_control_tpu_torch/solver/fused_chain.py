@@ -74,9 +74,11 @@ def _is_scalar(s) -> bool:
         isinstance(s, torch.Tensor) and s.dim() == 0)
 
 
-def _eligible(problem: OCProblem, settings: Settings) -> bool:
+def _eligible(problem: OCProblem, settings: Settings,
+              coupled: bool = False) -> bool:
     """The gate of the fused path (JAX fused_chain.py:76-99); every miss
-    uses the standard solver (same results, standard performance)."""
+    uses the standard solver (same results, standard performance).  A
+    coupled (shared-θ) solve never takes it."""
     logging = settings.logging
     return (settings.fused_iteration
             and problem.fused_iter is not None
@@ -84,6 +86,7 @@ def _eligible(problem: OCProblem, settings: Settings) -> bool:
             # the fused iteration's line search IS the fused probe; a user
             # disabling it gets the standard solver, which honours the flag
             and settings.line_search.fused_probe
+            and not coupled
             and problem.fused_iter[2].dtype == torch.float32
             and settings.iterative_refinement_steps == 0
             and _is_scalar(problem.scale_dual)

@@ -1,14 +1,19 @@
 """SIP-style interior-point solver for stagewise NLPs, batched over scenarios.
 
 PyTorch port of ``sip_optimal_control_tpu/solver/sip.py`` (the standard
-iteration, ``_solve_impl``; shared-theta ``coupled_axes`` solves are not
-ported).  The reference delegates the outer loop to the external
-`@sip//sip` library, visible only through its callback interface
-(reference: sip_optimal_control.cpp:182-208); this module implements that
-solver for a batch of independent scenarios: every tensor leads with the
-scenario axis, every scalar of the JAX solver is a [B] tensor, and the
-per-scenario control flow of a vmapped ``lax.while_loop`` becomes per-lane
-masks and selects.
+iteration, ``_solve_impl``).  The reference delegates the outer loop to
+the external `@sip//sip` library, visible only through its callback
+interface (reference: sip_optimal_control.cpp:182-208); this module
+implements that solver for a batch of independent scenarios: every tensor
+leads with the scenario axis, every scalar of the JAX solver is a [B]
+tensor, and the per-scenario control flow of a vmapped
+``lax.while_loop`` becomes per-lane masks and selects.
+
+``solve(coupled=True)`` (JAX's ``coupled_axes``) makes the batch ONE joint
+NLP whose scenarios share θ: every scalar coupling (merit, residual norms,
+step limits, θ stationarity) is a sum, max or min over the batch axis,
+broadcast back to every scenario, and the θ Schur system is summed over
+the batch and solved once (ops/kkt.py).
 
 Method: slack-based primal-dual barrier with proximal (dual) regularization
 (cf. PAPERS.md: "Dual-Regularized Riccati Recursions for Interior-Point
@@ -226,7 +231,8 @@ def solve(problem: OCProblem, settings: Settings,
           init_y: Optional[YVec] = None,
           init_z: Optional[ZVec] = None,
           init_zl: Optional[Primal] = None,
-          init_zu: Optional[Primal] = None) -> SolveResult:
+          init_zu: Optional[Primal] = None,
+          coupled: bool = False) -> SolveResult:
     """Run the interior-point solve for every scenario of the batch.
 
     Warm starting: pass `init_vars` / `init_y` (and optionally the
@@ -234,7 +240,12 @@ def solve(problem: OCProblem, settings: Settings,
     from a previous SolveResult (reference:
     tests/variable_dimensions_test.cpp:437-446).  Warm `init_z` is floored
     at mu_init complementarity (z >= mu/s); warm bound duals are projected
-    into the IPOPT-style kappa_sigma box [mu/(kappa d), kappa mu/d]."""
+    into the IPOPT-style kappa_sigma box [mu/(kappa d), kappa mu/d].
+
+    ``coupled``: all B scenarios form one joint problem sharing θ (JAX
+    sip.py:325-442); the result's θ is identical on every scenario and its
+    status, iterations and KKT error are the joint problem's.  Requires
+    unbounded θ (θ bounds would add lane-replicated barrier terms)."""
     if settings.fixed_iterations and settings.max_iterations < 1:
         raise ValueError(
             "fixed_iterations requires max_iterations >= 1 (a 0-trip loop "
@@ -245,15 +256,31 @@ def solve(problem: OCProblem, settings: Settings,
             "ported yet")
     if settings.fused_iteration:
         from .fused_chain import _eligible, solve_fused
-        if _eligible(problem, settings):
+        if _eligible(problem, settings, coupled):
             return solve_fused(problem, settings, init_vars, init_y, init_z,
                                init_zl, init_zu)
     return _solve_impl(problem, settings, init_vars, init_y, init_z, init_zl,
-                       init_zu)
+                       init_zu, coupled)
+
+
+def _batch_reductions(coupled: bool):
+    """(gsum, gmax, gmin) over the batch axis ``dim``, broadcast back to
+    every scenario: JAX's psum / pmax / pmin over the coupled axes.  The
+    identity when the scenarios are independent."""
+    if not coupled:
+        def ident(v, dim=0):
+            return v
+        return ident, ident, ident
+
+    def fold(op):
+        def red(v, dim=0):
+            return op(v, dim, keepdim=True).expand(v.shape)
+        return red
+    return (fold(torch.sum), fold(torch.amax), fold(torch.amin))
 
 
 def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
-                init_z, init_zl, init_zu) -> SolveResult:
+                init_z, init_zl, init_zu, coupled=False) -> SolveResult:
     dims = problem.dims
     masks = problem.masks
     sched = problem.sched
@@ -282,11 +309,25 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
     has_lb = tree_map(torch.isfinite, lower)
     has_ub = tree_map(torch.isfinite, upper)
 
+    # ----- coupled (shared-θ) reductions (JAX sip.py:401-442) --------------
+    # every scenario is one part of a single joint NLP: scalar couplings
+    # reduce over the batch, and lane-replicated θ terms (its prox
+    # regularization) count once, on scenario 0 (th_once, JAX's rep0)
+    gsum, gmax, gmin = _batch_reductions(coupled)
+    th_once = 1.0
+    if coupled:
+        if bool(has_lb.theta.any() | has_ub.theta.any()):
+            raise ValueError(
+                "coupled solves require unbounded theta (theta box bounds "
+                "would add lane-replicated barrier terms)")
+        th_once = torch.zeros(batch, 1, dtype=dtype, device=device)
+        th_once[0] = 1.0
+
     # Fused line-search probe (ops/ls_probe.py, a chain's or a tree's):
     # engaged when the problem is eligible (build_problem sets fused_ls)
     # and float32, the regime of the kernels (JAX sip.py:522-531)
     fused_probe_fn = fused_x0 = None
-    if (ls.fused_probe and problem.fused_ls is not None
+    if (ls.fused_probe and problem.fused_ls is not None and not coupled
             and dtype == torch.float32):
         fspec, fbounds, fused_x0 = problem.fused_ls
         fused_probe_fn = make_fused_probe(fspec, fbounds)
@@ -367,6 +408,10 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         stat = tree_map(lambda g_, a, b_, l, u_, m: (g_ + a + b_ + u_ - l) * m,
                         ev.grad, _primal_of(ct), _primal_of(gt), zl, zu,
                         pmask)
+        if coupled:
+            # joint θ stationarity: the sum of the scenarios' contributions
+            # (θ is unbounded, so its zl/zu rows are zero)
+            stat = stat._replace(theta=gsum(stat.theta))
         r_ineq = tree_map(lambda g, sv, m: torch.where(m, g + sv, 0.0), ev.g,
                           s, zmask)
         sb = problem.scale_bound
@@ -387,11 +432,11 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                                                        scaled_inf(cu, sb)))
 
         def err(m_mu):
-            return torch.amax(torch.stack([
+            return gmax(torch.amax(torch.stack([
                 scaled_inf(stat, problem.scale_dual),
                 scaled_inf(ev.c, problem.scale_equality),
                 _tinf(r_ineq),
-                comp(m_mu)]), dim=0)
+                comp(m_mu)]), dim=0))
 
         return stat, r_ineq, err
 
@@ -434,6 +479,9 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
             lambda gv, sv, m: torch.where(m, torch.abs(gv + sv), 0.0), g, s,
             zmask), lead)
         base = f - mu * (log_s + log_b)
+        # coupled: the joint merit sums every scenario (the batch axis is
+        # the last leading axis)
+        base, theta = gsum(base, lead - 1), gsum(theta, lead - 1)
         return base + nu * theta, theta
 
     def step_along(v, d, alpha):
@@ -469,6 +517,10 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
             dl, zl, has_lb, du, zu, has_ub)
         r1 = tree_map(lambda b_, m: (settings.prox_reg * lv(st.reg_boost, b_)
                                      + b_) * m, bound_diag, pmask)
+        if coupled:
+            # the shared θ's prox regularization is ONE term of the joint
+            # system: count it on scenario 0 only (kkt_factor sums it)
+            r1 = r1._replace(theta=r1.theta * th_once)
         w = tree_map(lambda sv, zv, m: torch.where(m, sv / zv, 1.0), s, z,
                      zmask)
 
@@ -499,8 +551,14 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         # factor with bounded proximal-inflation retries: each retry
         # refactors every scenario and keeps the result where the previous
         # attempt failed (the vmapped while_loop's per-lane semantics)
+        def gfactor(regs_):
+            # coupled: the joint factorization fails when any scenario's
+            # does (they share one Newton system)
+            f_ = kkt_factor(ev.stage, regs_, masks, sched, backend, coupled)
+            return f_._replace(status=gmax(f_.status)) if coupled else f_
+
         regs_f = regs
-        fact = kkt_factor(ev.stage, regs_f, masks, sched, backend)
+        fact = gfactor(regs_f)
         for _ in range(settings.max_factor_retries):
             failed = fact.status != 0
             rs = settings.retry_scale
@@ -509,16 +567,19 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                 r1_x=regs_f.r1_x * rs + rs * settings.prox_reg * pmask.x,
                 r1_u=regs_f.r1_u * rs + rs * settings.prox_reg * pmask.u,
                 r1_th=regs_f.r1_th * rs
-                + rs * settings.prox_reg * pmask.theta)
-            fact_n = kkt_factor(ev.stage, regs_n, masks, sched, backend)
+                + rs * settings.prox_reg * pmask.theta * th_once)
+            fact_n = gfactor(regs_n)
             regs_f = tree_select(failed, regs_n, regs_f)
             fact = tree_select(failed, fact_n, fact)
         factor_failed = fact.status != 0
 
-        sol = kkt_solve(fact, ev.stage, b, sched, backend)
+        sol = kkt_solve(fact, ev.stage, b, sched, backend, coupled)
         for _ in range(settings.iterative_refinement_steps):
+            # coupled: apply_K's θ row is this scenario's contribution
+            # (r1_th counted on scenario 0), reduced again by kkt_solve
             resid = b - apply_K(ev.stage, regs_f, sol, sched)
-            sol = sol + kkt_solve(fact, ev.stage, resid, sched, backend)
+            sol = sol + kkt_solve(fact, ev.stage, resid, sched, backend,
+                                  coupled)
         dv, dy, dz = _primal_of(sol), _y_of(sol), _z_of(sol)
         ds = tree_map(lambda ri, gdx, m: torch.where(m, -ri - gdx, 0.0),
                       r_ineq, _z_of(apply_G(ev.stage, sol, sched)), zmask)
@@ -553,26 +614,26 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                 out = torch.minimum(out, max_step(v_, sign * d_, m_))
             return out
 
-        alpha_p = torch.minimum(
+        alpha_p = gmin(torch.minimum(
             min_steps(s, ds, zmask),
             torch.minimum(min_steps(dl, dv, has_lb),
-                          min_steps(du, dv, has_ub, -1.0)))
-        alpha_d = torch.minimum(min_steps(z, dz, zmask), torch.minimum(
-            min_steps(zl, dzl, has_lb), min_steps(zu, dzu, has_ub)))
+                          min_steps(du, dv, has_ub, -1.0))))
+        alpha_d = gmin(torch.minimum(min_steps(z, dz, zmask), torch.minimum(
+            min_steps(zl, dzl, has_lb), min_steps(zu, dzu, has_ub))))
 
         # ----- line search on the barrier merit ---------------------------
         phi0, theta0 = barrier_value(vars, s, ev.f, ev.c, ev.g, mu, 0.0)
         # directional derivative of f + barrier
-        d_phi = (_tdot(ev.grad, dv)
-                 - mu * _tsum(tree_map(
-                     lambda dsv, sv, m: torch.where(m, dsv / sv, 0.0),
-                     ds, s, zmask))
-                 - mu * _tsum(tree_map(
-                     lambda dx_, d, h: torch.where(h, dx_ / d, 0.0),
-                     dv, dl, has_lb))
-                 + mu * _tsum(tree_map(
-                     lambda dx_, d, h: torch.where(h, dx_ / d, 0.0),
-                     dv, du, has_ub)))
+        d_phi = gsum(_tdot(ev.grad, dv)
+                     - mu * _tsum(tree_map(
+                         lambda dsv, sv, m: torch.where(m, dsv / sv, 0.0),
+                         ds, s, zmask))
+                     - mu * _tsum(tree_map(
+                         lambda dx_, d, h: torch.where(h, dx_ / d, 0.0),
+                         dv, dl, has_lb))
+                     + mu * _tsum(tree_map(
+                         lambda dx_, d, h: torch.where(h, dx_ / d, 0.0),
+                         dv, du, has_ub)))
         nu = torch.maximum(st.nu, torch.where(
             theta0 > 1e-14, d_phi / ((1.0 - ls.nu_rho)
                                      * torch.clamp(theta0, min=1e-14)),

@@ -95,18 +95,3 @@ def test_operators_match_jax():
         for a, b in zip(tree_leaves(got), tree_leaves(want)):
             torch.testing.assert_close(a, b, rtol=_TOL, atol=_TOL, msg=name)
 
-
-def test_theta_not_ported():
-    dims = J.Dimensions.uniform(num_edges=2, state_dim=2, control_dim=1,
-                                theta_dim=1)
-    topo = J.Topology.chain(2)
-    rng = np.random.default_rng(13)
-    jmodel = synthetic_model(dims, topo, rng)
-    regs = make_regs(dims, JK.ConstraintMasks.build(dims), rng)
-    model = P.from_jax_numpy(PK.StageModelData, _stack([jmodel]))
-    pregs = P.from_jax_numpy(PK.Regularizations, _stack([regs]))
-    pdims = P.Dimensions.uniform(num_edges=2, state_dim=2, control_dim=1,
-                                 theta_dim=1)
-    with pytest.raises(NotImplementedError):
-        PK.kkt_factor(model, pregs, PK.ConstraintMasks.build(pdims),
-                      P.compile_topology(P.Topology.chain(2)))
