@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases; any failure raises and the script exits non-zero:
 
 1. Device: requires CUDA; prints the card and its power limit; TF32 off.
-2. Build: compiles, all at once, the CUDA Riccati kernels (csrc/riccati.cu),
+2. Build: compiles, all at once, the native topology library
+   (native/topology.cpp, g++), the CUDA Riccati kernels (csrc/riccati.cu),
    the fused line-search probe generated for each chain path's model and
    for phase 8's quadrotor (ops/ls_probe.py), the tree probe generated for robust_tree
    (csrc/ls_probe_tree.cuh) and the four whole-iteration kernels
@@ -105,9 +106,46 @@ reads the last.  A kernel's bound counts the bytes it reads and writes
    solver_launches' count (per trip: 4 factorizations, each with one
    theta-column solve, and one solve); best call -> coupled scenarios/s.
    Phases 8 and 9 print their numbers beside the card's nvidia-smi line.
-10. The kernels line gives the Riccati kernels and the chain probe a
-   record at phases 8 and 9's shapes with those paths' launches; the last
-   line is the device record.
+10. Variable dimensions and general constraints (BASELINE config 2).
+   (a) Random float32 chain data (B=4096, T=50) at (n_max, m_max) =
+   (3, 2), node k with 1 + (k mod 3) states and edge e with 1 + (e mod 2)
+   controls, padded by pad_lqr_data and factored and solved on "scan",
+   "cuda" and "assoc": statuses identical, the dead entries of x, u and y
+   exactly 0 on every backend, the solutions under compare's rule against
+   float64 "scan", residuals logged; the Riccati kernels at (3, 2) against
+   their twins on the padded data, timed, with launch configuration and
+   ptxas line.  (b) tests/test_variable_dims_frontdoor.py's stage-varying
+   constraints at horizon 50 (velocity cap at node 2, final position
+   pinned at 0.5, |u| <= 20) and (c) its growing state at horizon 50 (2
+   states before node 25, 3 from there: the kernels at padded (3, 1)),
+   each from B=4096 starts (0, 0) jittered with seed 0, float32, "cuda",
+   convergence-tested (80 iterations, tol 1e-3): SOLVED on >= 0.99, on
+   those the cap and bounds (and the pin within 1e-3), controls within
+   1e-2 (1 + |ref|) of the same batch on float64 "scan" on >= 0.99, the
+   dead third state exactly 0, launches as solver_launches counts, the
+   kernels at the path's shape timed.  (d) The constrained result saved
+   by save_warm_start and loaded onto the card: a warm re-solve from it
+   equals the one from the tensors in memory bit for bit.  (e) The
+   derivative-check channel on the constrained problem at B=1, float64:
+   its four errors < 1e-6.  (f) The native topology library loaded, its
+   schedules equal to the NumPy builder's on robust_tree and on a random
+   tree of 4096 nodes.
+11. The associative-scan backend.  (a) Random chains, scenario 1 with a
+   non-PD R and scenario 2 a negative delta, at (4, 1) T=1024 B=16 in
+   float64 and float32, (4, 1) T=50 B=4096 and (16, 4) T=50 B=4096 in
+   float32: "assoc", "scan" (and "cuda" in float32) fail exactly those
+   two; "assoc" against "scan" over V, x, u and y within 1e-9 relative in
+   float64, under compare's rule against float64 "scan" in float32 at
+   T=50, logged at T=1024 float32; each backend's factor + solve ms.
+   (b) One 25-step call of phase 4's cartpole path on "assoc" (the fused
+   probe): usable_frac >= 0.99, the probe launched once per trip and no
+   Riccati kernel, step 1's statuses equal to "scan"'s on >= 0.99 and its
+   iterates under compare's rule against float64 "scan"
+   (compare_step1's share logged: see run_assoc_path); ms per step
+   beside phase 4's.
+12. The kernels line gives the Riccati kernels and the chain probe a
+   record at the shapes of phases 8, 9 and 10 with those paths' launches;
+   the last line is the device record.
 """
 
 import concurrent.futures
@@ -115,6 +153,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1434,14 +1473,16 @@ def check_launches(label, got, want):
                                  f"path, expected {exp}")
 
 
-def riccati_path_records(device, label, T, n, m, seed):
+def riccati_path_records(device, label, T, n, m, seed, data=None):
     """The factor and both solve kernels at a path's shape (B=BATCH,
-    horizon T, (n, m)) on random float32 chain data: each against its twin
-    (FACTOR_TOL, SOLVE_TOL), timed beside its twin and bound, with its
-    device ms per launch.  Returns {name: record}."""
+    horizon T, (n, m)) on random float32 chain data (or `data`): each
+    against its twin (FACTOR_TOL, SOLVE_TOL), timed beside its twin and
+    bound, with its device ms per launch, launch configuration and ptxas
+    line.  Returns {name: record}."""
     import torch
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
-    data = random_chain(T, n, m, BATCH, seed, device)
+    if data is None:
+        data = random_chain(T, n, m, BATCH, seed, device)
     factor = "riccati_factor_gram" if n >= rc.GRAM_N else "riccati_factor"
     fact_t = rc.factor_chain_reference(data)
     bwd_in = (data.q, data.r, data.c, data.delta, fact_t.F_chol,
@@ -1465,9 +1506,14 @@ def riccati_path_records(device, label, T, n, m, seed):
                             fn(*args) for name, (args, _) in cases.items()],
                            "void riccati::",
                            {name: RICCATI_NAMES[name] for name in cases})
+    lib = rc.build_library()[0]
     out = {}
     for name, (args, _) in cases.items():
         fn, twin, source, replaces = rc.KERNELS[name]
+        cfg = rc.launch_config(rc._library(), name, n, m, BATCH)
+        entry = f"{RICCATI_NAMES[name]}ILi{n}ELi{m}E"
+        log(f"launch[{name} {label} ({n}, {m})] B={BATCH}: "
+            f"{json.dumps(cfg)}; ptxas {ptxas_line(lib, entry)}")
         rec = kernel_record(name, errs[name], fn, twin, args,
                             BATCH * T * _riccati_flops(name, n, m), source,
                             replaces)
@@ -1720,16 +1766,520 @@ def run_joint_theta(device, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: variable dimensions and general constraints
+# ---------------------------------------------------------------------------
+
+DT = 0.1
+
+
+def _stage_dims(state_dims, control_dims, node_c=None, node_g=None):
+    from sip_optimal_control_tpu_torch import Dimensions
+    N, E = len(state_dims), len(control_dims)
+    return Dimensions(theta_dim=0, state_dims=tuple(state_dims),
+                      control_dims=tuple(control_dims),
+                      node_c_dims=tuple(node_c or (0,) * N),
+                      node_g_dims=tuple(node_g or (0,) * N),
+                      edge_c_dims=(0,) * E, edge_g_dims=(0,) * E)
+
+
+def growing_state_problem(horizon):
+    """tests/test_variable_dims_frontdoor.py:21-84's growing state at
+    `horizon`: nodes before horizon // 2 carry [p, v], the rest add an
+    integral state z with z' = z + dt p (costed from there on).  Returns
+    (spec, dims, topology, lower, upper) with no bounds."""
+    import torch
+    from sip_optimal_control_tpu_torch import ModelSpec, Topology
+    grow_at = horizon // 2
+
+    def dynamics(x, u, th, i):
+        # z's row is dead for children before grow_at; a parent's dead z
+        # arrives as 0
+        return torch.cat([x[:1] + DT * x[1:2], x[1:2] + DT * u[:1],
+                          x[2:3] + DT * x[:1]])
+
+    def node_cost(x, th, i):
+        return 0.5 * (x[:1] ** 2 + 0.1 * x[1:2] ** 2 + torch.where(
+            i >= grow_at, 0.5 * x[2:3] ** 2, 0.0)).sum()
+
+    def edge_cost(x, u, th, i):
+        return 0.05 * (u ** 2).sum()
+
+    dims = _stage_dims([2 if k < grow_at else 3 for k in range(horizon + 1)],
+                       [1] * horizon)
+    return (ModelSpec(dynamics=dynamics, node_cost=node_cost,
+                      edge_cost=edge_cost), dims, Topology.chain(horizon),
+            None, None)
+
+
+def constrained_problem(horizon, dtype, device):
+    """tests/test_variable_dims_frontdoor.py:131-168's stage-varying
+    constraints at `horizon`: a velocity cap v <= 0.6 at node 2 only, the
+    final position pinned at 0.5, |u| <= 20.  Returns (spec, dims,
+    topology, lower, upper)."""
+    import torch
+    from sip_optimal_control_tpu_torch import ModelSpec, Topology, box_bounds
+
+    def dynamics(x, u, th, i):
+        return torch.cat([x[:1] + DT * x[1:2], x[1:2] + DT * u[:1]])
+
+    spec = ModelSpec(
+        dynamics=dynamics,
+        node_cost=lambda x, th, i: 0.5 * (x ** 2).sum(),
+        edge_cost=lambda x, u, th, i: 0.05 * (u ** 2).sum(),
+        node_ineq=lambda x, th, i: x[1:2] - CAP,
+        node_eq=lambda x, th, i: x[:1] - PIN)
+    N = horizon + 1
+    dims = _stage_dims([2] * N, [1] * horizon,
+                       node_c=[1 if k == horizon else 0 for k in range(N)],
+                       node_g=[1 if k == 2 else 0 for k in range(N)])
+    lower, upper = box_bounds(dims, u_lower=-U_MAX, u_upper=U_MAX,
+                              dtype=dtype, device=device)
+    return spec, dims, Topology.chain(horizon), lower, upper
+
+
+# the constrained problem's velocity cap (node 2), pinned final position
+# and control bound
+CAP, PIN, U_MAX = 0.6, 0.5, 20.0
+# phase 10: the padded LQR's (n_max, m_max) and seed; the front-door
+# problems' horizon, iteration budget and KKT tolerance; the share of
+# scenarios that must be SOLVED and agree with float64 "scan" (controls
+# within QUAD's iter_tol (1 + |ref|), phase 8's rule); the pin's bar
+VAR = dict(nm=(3, 2), seed=100, horizon=50, iterations=80, tol=1e-3,
+           solved=0.99, agree=0.99, pin_tol=1e-3)
+
+
+def padded_dims(T):
+    """Phase 10(a)'s stage dims: node k has 1 + (k mod 3) states, edge e
+    1 + (e mod 2) controls."""
+    return _stage_dims([1 + k % 3 for k in range(T + 1)],
+                       [1 + e % 2 for e in range(T)])
+
+
+def _double(data):
+    return dataclasses.replace(data, **{
+        f.name: getattr(data, f.name).double()
+        for f in dataclasses.fields(data)})
+
+
+def check_padded_lqr(device):
+    """Phase 10(a): random float32 chain data at (3, 2), padded to the
+    stage dims of padded_dims, factored and solved on "scan", "cuda" and
+    "assoc": statuses identical, dead entries of x, u and y exactly 0 on
+    every backend, live entries under compare's rule against float64
+    "scan", residuals logged.  Returns (records at the path's shape,
+    launches of the "cuda" factor and solve)."""
+    import torch
+    from sip_optimal_control_tpu_torch import (Topology, compile_topology,
+                                               lqr_factor, lqr_residual_norm,
+                                               lqr_solve, pad_lqr_data)
+    from sip_optimal_control_tpu_torch.ops.lqr import dimension_masks
+    label, T = "padded_lqr", HORIZON
+    n, m = VAR["nm"]
+    dims = padded_dims(T)
+    sched = compile_topology(Topology.chain(T))
+    data = pad_lqr_data(random_chain(T, n, m, BATCH, VAR["seed"], device),
+                        dims, sched)
+    sols, status = {}, {}
+    for backend in ("scan", "cuda", "assoc"):
+        if backend == "cuda":
+            reset_counts()
+        fact = lqr_factor(data, sched, backend)
+        sols[backend] = lqr_solve(data, fact, sched, backend)
+        status[backend] = fact.status
+        if backend == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+    data64 = _double(data)
+    ref = lqr_solve(data64, lqr_factor(data64, sched), sched)
+    state_mask, control_mask = (torch.as_tensor(a, device=device)
+                                for a in dimension_masks(dims))
+    ok = status["scan"] == 0
+    for backend, sol in sols.items():
+        if not torch.equal(status[backend], status["scan"]):
+            raise AssertionError(f"{label}: {backend} statuses differ from "
+                                 "scan's")
+        dead = [sol.x[:, ~state_mask], sol.y[:, ~state_mask],
+                sol.u[:, ~control_mask]]
+        if any(bool((t != 0).any()) for t in dead):
+            raise AssertionError(f"{label}: {backend} has non-zero dead "
+                                 "entries")
+        detail = ""
+        if backend != "scan":
+            err, detail = compare(label, f"{backend} solution",
+                                  (sol.x, sol.u, sol.y),
+                                  (sols["scan"].x, sols["scan"].u,
+                                   sols["scan"].y), SOLVE_TOL, ok,
+                                  (ref.x, ref.u, ref.y))
+            detail = f", max|{backend} - scan| {err:.3e}{detail}"
+        res = lqr_residual_norm(data, sol, sched)
+        log(f"{label} [{backend}] B={BATCH} T={T} (n, m)=({n}, {m}): "
+            f"SUCCESS on {int(ok.sum())}/{BATCH}, dead entries exactly 0 "
+            f"({int((~state_mask).sum())} of {state_mask.numel()} state and "
+            f"{int((~control_mask).sum())} of {control_mask.numel()} control "
+            f"entries a scenario), residual median "
+            f"{float(res.median()):.3e} max {float(res.max()):.3e}{detail}")
+    check_launches(label, launches, {"riccati_factor": 1,
+                                     "riccati_solve_bwd": 1,
+                                     "riccati_solve_fwd": 1})
+    return riccati_path_records(device, label, T, n, m, VAR["seed"],
+                                data=data), launches
+
+
+def var_settings(backend):
+    """Phase 10's front-door settings: convergence-tested, VAR's budget
+    and tolerance, the float32 regularization floors of phases 8-9."""
+    from sip_optimal_control_tpu_torch import Settings
+    return Settings(max_iterations=VAR["iterations"], tol=VAR["tol"],
+                    mu_min=1e-5, reg_floor=1e-5, prox_reg=1e-5,
+                    riccati_backend=backend)
+
+
+def var_starts(device, dtype, batch=None):
+    """BATCH starts (0, 0) jittered as main_path_inputs jitters (seed 0,
+    float32)."""
+    import torch
+    rng = np.random.default_rng(0)
+    x0s = 0.1 * rng.standard_normal((batch or BATCH, 2)).astype(np.float32)
+    return torch.as_tensor(x0s, device=device).to(dtype)
+
+
+def var_solve(problem, x0s, backend, settings=None, **kw):
+    from sip_optimal_control_tpu_torch import build_problem, solve
+    spec, dims, topo, lower, upper = problem
+    return solve(build_problem(spec, dims, topo, x0s, lower, upper),
+                 settings or var_settings(backend), **kw)
+
+
+def var_problem(label, dtype, device):
+    T = VAR["horizon"]
+    if label == "constrained":
+        return constrained_problem(T, dtype, device)
+    return growing_state_problem(T)
+
+
+def run_var_path(device, label, smi, seed, batch=None):
+    """Phase 10(b) ("constrained") and (c) ("growing_state") at B=BATCH on
+    "cuda" in float32: SOLVED on VAR's share, the constraints on those, the
+    controls against float64 "scan" on the same starts, the dead states
+    exactly 0, launches as solver_launches counts.  Returns (records at
+    the path's shape, launches, result)."""
+    import torch
+    batch = batch or BATCH
+    T = VAR["horizon"]
+    problem = var_problem(label, torch.float32, device)
+    dims = problem[1]
+    n, m = dims.max_state_dim, dims.max_control_dim
+    x0s = var_starts(device, torch.float32, batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    res = var_solve(problem, x0s, "cuda")
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trips = int(res.iterations.max())
+    check_launches(label, launches, solver_launches(var_settings("cuda"),
+                                                    trips))
+    if not all(bool(torch.isfinite(t).all()) for t in res.vars):
+        raise AssertionError(f"{label}: non-finite iterate")
+    ref = var_solve(var_problem(label, torch.float64, device),
+                    x0s.double(), "scan")
+    solved = res.status == 0
+    agree = ((res.vars.u.double() - ref.vars.u).abs()
+             <= QUAD["iter_tol"] * (1 + ref.vars.u.abs())).flatten(1).all(-1)
+    x, u = res.vars.x[solved], res.vars.u[solved]
+    checks = {}
+    if label == "constrained":
+        checks = {
+            "cap": float((x[:, 2, 1] - CAP).max()),
+            "pin": float((x[:, T, 0] - PIN).abs().max()),
+            "bound": float((u.abs() - U_MAX).max())}
+        if not (checks["cap"] <= VAR["tol"] and checks["bound"] <= 0
+                and checks["pin"] <= VAR["pin_tol"]):
+            raise AssertionError(f"{label}: constraints violated {checks}")
+    else:
+        dead = res.vars.x[:, :T // 2, 2]
+        checks = {"dead_states_nonzero": int((dead != 0).sum())}
+        if checks["dead_states_nonzero"]:
+            raise AssertionError(f"{label}: dead states not exactly 0")
+    share, share_agree = (float(solved.float().mean()),
+                          float(agree.float().mean()))
+    ms = start.elapsed_time(end)
+    log(f"path [{label}] ({smi}): B={batch} T={T} kernel shape (n, m)=({n}, "
+        f"{m}) float32 cuda: SOLVED on {share:.4f} (bar {VAR['solved']}; "
+        f"float64 scan {float((ref.status == 0).float().mean()):.4f}), "
+        f"controls within {QUAD['iter_tol']} (1 + |ref|) of float64 scan "
+        f"on {share_agree:.4f} (bar {VAR['agree']}); {trips} trips, "
+        f"mean iterations {float(res.iterations.float().mean()):.3f}; "
+        f"{ms:.1f} ms (CUDA events); checks on the SOLVED scenarios "
+        f"{json.dumps(checks)}")
+    if share < VAR["solved"] or share_agree < VAR["agree"]:
+        raise AssertionError(f"{label}: SOLVED {share}, agreement "
+                             f"{share_agree}")
+    records = riccati_path_records(device, label, T, n, m, seed)
+    return records, launches, res
+
+
+CHANNEL = re.compile(r"derivative check \(central FD, eps=([\d.e+-]+)\): "
+                     r"gradient=([\d.e+-]+) jacobian_c=([\d.e+-]+) "
+                     r"jacobian_g=([\d.e+-]+) hessian=([\d.e+-]+)")
+DERIV_TOL = 1e-6       # tests/test_solver_extras.py:245-247
+
+
+def check_var_extras(device, constrained):
+    """Phase 10(d)-(f): the checkpoint of the constrained result re-solved
+    bit for bit, the derivative-check channel at B=1 in float64, the
+    native topology loader."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from sip_optimal_control_tpu_torch import (Settings, Topology,
+                                               compile_topology, native)
+    from sip_optimal_control_tpu_torch.ops import cuda_build
+    from sip_optimal_control_tpu_torch.solver.settings import \
+        LoggingSettings
+    from sip_optimal_control_tpu_torch.utils import (load_warm_start,
+                                                     save_warm_start)
+
+    # (d) checkpoint: a warm re-solve from the loaded file equals the one
+    # from the tensors in memory, bit for bit
+    problem = var_problem("constrained", torch.float32, device)
+    x0s = var_starts(device, torch.float32)
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        path = os.path.join(tmp, "warm.npz")
+        save_warm_start(path, constrained.vars, constrained.y)
+        vars, y = load_warm_start(path, device=device)
+    warm = dataclasses.replace(var_settings("cuda"), max_iterations=10,
+                               mu_init=1e-4)
+    resumed = var_solve(problem, x0s, "cuda", warm, init_vars=vars,
+                        init_y=y)
+    mem = var_solve(problem, x0s, "cuda", warm, init_vars=constrained.vars,
+                    init_y=constrained.y)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tuple(vars) + tuple(y),
+                   tuple(constrained.vars) + tuple(constrained.y)))
+    same_solve = all(torch.equal(a, b) for a, b in
+                     zip(tuple(resumed.vars) + (resumed.status,
+                                                resumed.iterations),
+                         tuple(mem.vars) + (mem.status, mem.iterations)))
+    log(f"checkpoint [constrained]: loaded onto {vars.x.device} "
+        f"{vars.x.dtype}, equal to the saved tensors {same}; warm re-solve "
+        f"from the file equal to the in-memory one, bit for bit, "
+        f"{same_solve} (SOLVED on "
+        f"{float((resumed.status == 0).float().mean()):.4f})")
+    if not (same and same_solve):
+        raise AssertionError("checkpoint: the loaded warm start differs")
+
+    # (e) the derivative-check channel, one scenario in float64
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        var_solve(var_problem("constrained", torch.float64, device),
+                  var_starts(device, torch.float64, 1), "scan",
+                  Settings(max_iterations=VAR["iterations"], logging=
+                           LoggingSettings(print_derivative_check_logs=True)))
+    lines = CHANNEL.findall(out.getvalue())
+    if len(lines) != 1:
+        raise AssertionError(f"derivative check: {out.getvalue()!r}")
+    errs = [float(v) for v in lines[0][1:]]
+    log(f"derivative check [constrained, B=1, float64]: "
+        f"{out.getvalue().strip()} (bar {DERIV_TOL})")
+    if not max(errs) < DERIV_TOL:
+        raise AssertionError(f"derivative check errors {errs}")
+
+    # (f) the native topology loader: loaded, and its schedules the NumPy
+    # builder's on robust_tree and a random tree of 4096 nodes
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("native topology library did not load")
+    (_, _, _, robust, _, _), _ = main_path_inputs(device, 1, "robust_tree")
+    rng = np.random.default_rng(0)
+    parents = [0] + [int(rng.integers(0, k + 1)) for k in range(1, 4095)]
+    trees = {"robust_tree": robust,
+             "random_4096": Topology.tree(0, parents, range(1, 4096))}
+    for name, topo in trees.items():
+        a = compile_topology(topo, use_native=True)
+        b = compile_topology(topo, use_native=False)
+        fields = ("child_offsets", "child_edges", "preorder", "postorder",
+                  "depth", "parent_edge", "parent_node")
+        same = (all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in fields)
+                and len(a.levels_nodes) == len(b.levels_nodes)
+                and all(np.array_equal(x, z) for x, z in
+                        zip(a.levels_nodes + a.levels_edges,
+                            b.levels_nodes + b.levels_edges)))
+        log(f"native topology [{name}]: {topo.num_nodes} nodes, "
+            f"{a.num_levels} levels, library {lib._name}; schedule equal to "
+            f"the NumPy builder's {same}")
+        if not same:
+            raise AssertionError(f"native topology [{name}] differs")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the associative-scan backend
+# ---------------------------------------------------------------------------
+
+# (label, T, (n, m), B, dtype name, gated): JAX's stated use (long
+# horizon, small batch) in both precisions, then the paths' shapes
+ASSOC_CASES = (("cartpole_T1024_f64", 1024, (4, 1), 16, "float64", True),
+               ("cartpole_T1024_f32", 1024, (4, 1), 16, "float32", False),
+               ("cartpole_T50_f32", HORIZON, (4, 1), BATCH, "float32", True),
+               ("chain16_T50_f32", HORIZON, (16, 4), BATCH, "float32", True))
+ASSOC_F64_TOL = 1e-9        # relative, tests/test_golden_lqr.py:111
+
+
+def check_assoc_lqr(device, smi):
+    """Phase 11(a): "assoc" against "scan" (and "cuda" in float32) on
+    random chains, scenario 1 with a non-PD R, scenario 2 a negative
+    delta: statuses of "assoc" and "scan" identical and failing on the
+    same scenarios as "cuda"; float64 within ASSOC_F64_TOL relative,
+    float32 at T=50 under compare's rule against float64 "scan", at
+    T=1024 logged only; each backend's factor + solve ms."""
+    import torch
+    from sip_optimal_control_tpu_torch import (Topology, compile_topology,
+                                               lqr_factor, lqr_solve)
+    out = {}
+    for seed, (label, T, (n, m), B, dt, gated) in enumerate(ASSOC_CASES):
+        data = random_chain(T, n, m, B, 110 + seed, device)
+        R, delta = data.R.clone(), data.delta.clone()
+        R[1, T // 2] = -100.0 * torch.eye(m, device=device)
+        delta[2, T // 3, 0] = -1.0
+        data = dataclasses.replace(data, R=R, delta=delta)
+        data64 = _double(data)
+        if dt == "float64":
+            data = data64
+        sched = compile_topology(Topology.chain(T))
+        backends = ("scan", "assoc") if dt == "float64" else (
+            "scan", "assoc", "cuda")
+
+        def run(backend, d=data):
+            fact = lqr_factor(d, sched, backend)
+            return fact, lqr_solve(d, fact, sched, backend)
+
+        res = {b: run(b) for b in backends}
+        st = {b: f.status for b, (f, _) in res.items()}
+        ok = st["scan"] == 0
+        if ok.tolist()[:3] != [True, False, False] or int(ok.sum()) != B - 2:
+            raise AssertionError(f"{label}: statuses {st['scan'].tolist()}")
+        # every backend fails exactly the two bad scenarios; which failure
+        # each reports follows its own order (JAX's assoc reports a NaN
+        # from a singular combine as an F failure before an invalid
+        # delta, the kernels the F failure the G failure's NaNs cause)
+        for b in backends:
+            if not torch.equal(st[b] == 0, ok):
+                raise AssertionError(f"{label}: {b} statuses "
+                                     f"{st[b].tolist()}")
+
+        def fields(r):
+            fact, sol = r
+            return (fact.V, sol.x, sol.u, sol.y)
+
+        a, s = fields(res["assoc"]), fields(res["scan"])
+        diff = max(float(((x - y) / (1 + y.abs()))[ok].abs().max())
+                   for x, y in zip(a, s))
+        detail = ""
+        if dt == "float64":
+            if not diff <= ASSOC_F64_TOL:
+                raise AssertionError(f"{label}: assoc off scan by {diff}")
+        elif gated:
+            ref = fields(run("scan", data64))
+            _, detail = compare(label, "assoc", a, s, SOLVE_TOL, ok, ref)
+            diff_cuda = max(float((x - y)[ok].abs().max())
+                            for x, y in zip(a, fields(res["cuda"])))
+            detail += f"; max|assoc - cuda| {diff_cuda:.3e}"
+        # the run above warmed every backend; scan's many small ops take
+        # seconds a call at T=1024, so one timed call
+        ms = {b: time_ms(lambda b=b: run(b), reps=1 if b == "scan" else 5,
+                         warmup=0) for b in backends}
+        bar = (f"bar {ASSOC_F64_TOL}" if dt == "float64"
+               else "compare's rule" if gated else "not gated")
+        codes = ", ".join(f"{b} {st[b][:3].tolist()}" for b in backends)
+        log(f"assoc [{label}] ({smi}) B={B} T={T} (n, m)=({n}, {m}) {dt}: "
+            f"SUCCESS on the same {int(ok.sum())} scenarios on every "
+            f"backend (scenarios 0-2: {codes}); max |assoc - scan| / (1 + "
+            f"|scan|) over V, x, u, y {diff:.3e} ({bar}){detail}; factor + "
+            f"solve ms (CUDA events) "
+            + ", ".join(f"{b} {v:.3f}" for b, v in ms.items()))
+        out[label] = ms
+    return out
+
+
+def run_assoc_path(device, smi, standard_step_ms, batch=None):
+    """Phase 11(b): one call of phase 4's cartpole standard path (K=5, the
+    fused probe) with riccati_backend="assoc": usable_frac >= 0.99, the
+    probe launched once per trip and no Riccati kernel.  Step 1 against
+    "scan": statuses equal on SCAN_AGREEMENT of the scenarios, and the
+    iterates under compare's rule against float64 "scan" (assoc's error
+    at most COND_FACTOR times float32 scan's own).  compare_step1's share
+    is logged beside it: its bar holds a path to float32 scan's rounding,
+    which the Riccati kernels share (the same explicit-W formulation) and
+    the associative scan does not.  Returns the launches."""
+    import torch
+    batch = batch or BATCH
+    label, steps = "cartpole assoc", STEPS
+    mdl, state = main_path_inputs(device, batch)
+    step1 = {"scan": mpc_call(mdl, state, "scan", 1, fused_probe=False),
+             "cuda": mpc_call(mdl, state, "assoc", 1)}
+    share = compare_step1(step1, label=label)
+    ref = mpc_call(*main_path_inputs(device, batch, dtype=torch.float64),
+                   "scan", 1, fused_probe=False)
+    a, sc = step1["cuda"], step1["scan"]
+    agree = float((a.statuses[0] == sc.statuses[0]).float().mean())
+    err, detail = compare(label, "step 1 iterates",
+                          (a.x, a.vars.x, a.vars.u),
+                          (sc.x, sc.vars.x, sc.vars.u), 0.0, slice(None),
+                          (ref.x, ref.vars.x, ref.vars.u))
+    log(f"step 1 [{label}] against float64 scan: max|assoc - scan| "
+        f"{err:.3e}{detail}; statuses equal to scan's on {agree:.4f} (bar "
+        f"{SCAN_AGREEMENT}); compare_step1's share {share:.4f} (not gated)")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    out = mpc_call(mdl, state, "assoc", steps)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    trips = PATHS["cartpole"]["trips"] * steps
+    check_launches(label, launches, {"ls_probe": trips})
+    q = quality(out)
+    step_ms = start.elapsed_time(end) / steps
+    log(f"path [{label}] ({smi}): {steps} steps, batch {batch}: "
+        f"{step_ms:.2f} ms per MPC step (CUDA events; phase 4's cuda "
+        f"path {standard_step_ms:.2f}); quality {json.dumps(q)}")
+    if agree < SCAN_AGREEMENT or q["usable_frac"] < QUALITY_USABLE:
+        raise AssertionError(f"{label}: agreement {agree}, usable "
+                             f"{q['usable_frac']}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+
+# the phase of each path whose Riccati kernel records join the kernels line
+PATH_PHASES = {"quadrotor": "8", "joint_theta": "9", "padded_lqr": "10(a)",
+               "constrained": "10(b)", "growing_state": "10(c)"}
+
 
 def build_all(device):
     """Phase 2: every kernel library of the paths and the fused check, one
     nvcc each, all started together."""
-    from sip_optimal_control_tpu_torch import build_problem
+    from sip_optimal_control_tpu_torch import build_problem, native
     from sip_optimal_control_tpu_torch.ops import (cuda_build, fused_iter,
                                                    ls_probe)
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
 
-    jobs = {"riccati": rc.build_library}
+    def build_native():
+        t0 = time.perf_counter()
+        if native.load() is None:
+            raise AssertionError("the native topology library did not "
+                                 "build or load")
+        return native.library_path(), time.perf_counter() - t0
+
+    jobs = {"riccati": rc.build_library, "native_topology": build_native}
     for model in PATHS:
         prob, _ = path_problem(model, device, batch=1)
         fspec, fbounds, _ = prob.fused_ls
@@ -1750,7 +2300,8 @@ def build_all(device):
         for name, fut in futures.items():
             path, secs = fut.result()
             log(f"build[{name}]: {path} in {secs:.1f} s")
-            if secs > 0:           # ptxas -v: registers and spills
+            if secs > 0 and name != "native_topology":
+                # ptxas -v: registers and spills
                 log(cuda_build.ptxas_report(path))
     log(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s "
         "wall")
@@ -1807,6 +2358,8 @@ def main():
             scan_first[model] = res["scan_first"]
             q = check_path(res)
             report_path(res, q)
+            if (model, fused) == ("cartpole", False):
+                standard_step_ms = 1e3 * res["seconds"][-1][0] / res["steps"]
             launches[path_label(res)] = res["launches"]
             phase_done(f"path {path_label(res)}")
     res = run_path(device, "robust_tree")
@@ -1821,6 +2374,24 @@ def main():
                        ("joint_theta", run_joint_theta)):
         path_records[label], launches[label] = run(device, smi)
         phase_done(f"path {label}")
+
+    # phase 10: variable dimensions and general constraints, each run with
+    # the counts set to 0 just before it and read just after
+    path_records["padded_lqr"], launches["padded_lqr"] = \
+        check_padded_lqr(device)
+    phase_done("padded_lqr")
+    results = {}
+    for seed, label in enumerate(("constrained", "growing_state"), 102):
+        path_records[label], launches[label], results[label] = \
+            run_var_path(device, label, smi, seed)
+        phase_done(f"path {label}")
+    check_var_extras(device, results["constrained"])
+    phase_done("checkpoint, derivative check, native topology")
+
+    # phase 11: the associative-scan backend
+    check_assoc_lqr(device, smi)
+    run_assoc_path(device, smi, standard_step_ms)
+    phase_done("assoc")
 
     rows = []
     for kname in ("riccati_factor", "riccati_factor_gram",
@@ -1839,14 +2410,14 @@ def main():
             # standard iteration
             rec["quadrotor"]["launches"] = launches["quadrotor"][kname]
             rec["quadrotor"]["path"] = "quadrotor run_mpc (phase 8)"
-        # the standard iteration's kernels on phases 8 and 9, at each
-        # path's shape
+        # the standard iteration's kernels on phases 8-10, at each path's
+        # shape
         for label, recs in path_records.items():
             if kname in recs:
                 rec[label] = dict(recs[kname],
                                   launches=launches[label][kname],
                                   path=f"{label} (phase "
-                                  f"{8 if label == 'quadrotor' else 9})")
+                                  f"{PATH_PHASES[label]})")
         rows.append(rec)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@ from .types import (Dimensions, DimensionError, FactorStatus,
                     TopologySchedule, compile_topology, try_compile_topology,
                     validate_input)
 from .ops.lqr import (LQRData, LQRFactorization, LQRSolution, lqr_factor,
-                      lqr_factor_solve, lqr_residual_norm, lqr_solve)
+                      lqr_factor_solve, lqr_residual_norm, lqr_solve,
+                      pad_lqr_data)
 from .solver import (OCProblem, Primal, Settings, SIPStatus, SolveResult,
                      YVec, ZVec, solve)
 from .model import ModelSpec, box_bounds, build_problem

@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 
-RICCATI_BACKENDS = ("scan", "cuda")
+RICCATI_BACKENDS = ("scan", "cuda", "assoc")
 
 
 class SIPStatus(enum.IntEnum):
@@ -138,8 +138,12 @@ class Settings:
     # apply_K operator (reference: helpers.cpp:953-977)
     iterative_refinement_steps: int = 0
     # Chain-Riccati backend: "scan" (plain PyTorch recursion over the
-    # horizon) or "cuda" (the hand-written Hopper kernels of
-    # ops/riccati_cuda.py; CPU tensors take their plain twins).
+    # horizon), "cuda" (the hand-written Hopper kernels of
+    # ops/riccati_cuda.py; CPU tensors take their plain twins) or "assoc"
+    # (associative scan over the horizon, O(log T) rounds of batched ops:
+    # long horizons with small batches; needs SPD R, as the solver's
+    # condensed R is).  Trees always use the level-synchronous recursion;
+    # the fused iteration's kernels ignore the setting.
     riccati_backend: str = "scan"
     # Whole-iteration fusion (ops/fused_iter.py, solver/fused_chain.py):
     # eligible problems (build_problem's ``fused_iter`` payload: the fused

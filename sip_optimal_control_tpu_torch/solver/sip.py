@@ -41,12 +41,14 @@ import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .._tree import lane_view, tree_leaves, tree_map, tree_select
 from ..ops.kkt import (ConstraintMasks, KKTVector, Regularizations,
-                       StageModelData, apply_CT, apply_G, apply_GT, apply_K,
-                       kkt_factor, kkt_solve, zero_kkt_vector)
+                       StageModelData, apply_C, apply_CT, apply_G, apply_GT,
+                       apply_H, apply_K, kkt_factor, kkt_solve,
+                       zero_kkt_vector)
 from ..ops.ls_probe import make_fused_probe
 from ..types import Dimensions, TopologySchedule
 from .settings import Settings, SIPStatus
@@ -226,6 +228,84 @@ def _z_of(v: KKTVector) -> ZVec:
     return ZVec(n=v.z_n, e=v.z_e)
 
 
+def _lagrangian_grad(ev: ModelEval, duals: KKTVector,
+                     sched: TopologySchedule) -> Primal:
+    """grad f + C^T y + G^T z at fixed multipliers ``duals``."""
+    ct = apply_CT(ev.stage, duals, sched)
+    gt = apply_GT(ev.stage, duals, sched)
+    return Primal(x=ev.grad.x + ct.x + gt.x, u=ev.grad.u + ct.u + gt.u,
+                  theta=ev.grad.theta + ct.theta + gt.theta)
+
+
+def _fd_errors(problem: OCProblem, vars0: Primal, y: YVec, z: ZVec,
+               ev: ModelEval, template: KKTVector, d: Primal, eps: float):
+    """The finite-difference errors along direction ``d``, each [B]: the
+    gradient, the C and G Jacobian operators and the Lagrangian Hessian
+    (at fixed multipliers) against central differences of the
+    residual-only evaluation and of the Lagrangian gradient (JAX
+    sip.py:275-317, utils/derivative_check.py:78-103)."""
+    sched = problem.sched
+    duals = _kkt_from_duals(template, y, z)
+    vp = tree_map(lambda a, b_: a + eps * b_, vars0, d)
+    vm = tree_map(lambda a, b_: a - eps * b_, vars0, d)
+    fp, cp, gp = problem.eval_fcg(vp)
+    fm, cm, gm = problem.eval_fcg(vm)
+
+    def fd(plus, minus):
+        return tree_map(lambda a, b_: (a - b_) / (2 * eps), plus, minus)
+
+    dk = dataclasses.replace(template, x=d.x, u=d.u, theta=d.theta)
+    cd, fd_c = apply_C(ev.stage, dk, sched), fd(cp, cm)
+    gd, fd_g = apply_G(ev.stage, dk, sched), fd(gp, gm)
+    hd = apply_H(ev.stage, dk, sched)
+    fd_h = fd(_lagrangian_grad(problem.eval_model(vp, y, z), duals, sched),
+              _lagrangian_grad(problem.eval_model(vm, y, z), duals, sched))
+    return ((_tdot(ev.grad, d) - (fp - fm) / (2 * eps)).abs(),
+            _tinf(YVec(dyn=cd.y_dyn - fd_c.dyn, nc=cd.y_nc - fd_c.nc,
+                       ec=cd.y_ec - fd_c.ec)),
+            _tinf(ZVec(n=gd.z_n - fd_g.n, e=gd.z_e - fd_g.e)),
+            _tinf(Primal(x=hd.x - fd_h.x, u=hd.u - fd_h.u,
+                         theta=hd.theta - fd_h.theta)))
+
+
+def _print_derivative_check(problem: OCProblem, vars0: Primal, y: YVec,
+                            z: ZVec, ev: ModelEval, template: KKTVector,
+                            num_directions: int = 2) -> None:
+    """Finite-difference derivative check at the initial iterate, printed
+    when settings.logging.print_derivative_check_logs is set (JAX
+    sip.py:249-322; the reference's SIP core has the same channel,
+    reference: tests/variable_dimensions_test.cpp:432).
+
+    Central differences along fixed random directions (``_fd_errors``).
+    The directions are JAX's: ``np.random.default_rng(0)`` drawn in its
+    order at one scenario's shapes, the same direction for every
+    scenario.  JAX under vmap prints one line per scenario; this prints
+    ONE line per solve, each channel's maximum over the batch, in JAX's
+    format (a batch of one prints what JAX prints, up to roundoff).
+    Expected magnitudes: ~eps^(2/3) of the problem scale for exact
+    autodiff models; ``hessian`` is only meaningful in
+    hessian_mode="exact"."""
+    dtype, device = template.x.dtype, template.x.device
+    eps = float(torch.finfo(dtype).eps) ** (1.0 / 3.0)
+    rng = np.random.default_rng(0)
+
+    def draw(t):
+        d = torch.as_tensor(rng.standard_normal(t.shape[1:]), dtype=dtype,
+                            device=device)
+        return d.expand(t.shape)
+
+    errs = [0.0] * 4
+    for _ in range(num_directions):
+        d = Primal(x=draw(template.x), u=draw(template.u),
+                   theta=draw(template.theta))
+        errs = [max(a, float(b_.max())) for a, b_ in zip(
+            errs, _fd_errors(problem, vars0, y, z, ev, template, d, eps))]
+    g, c, gq, h = errs
+    print(f"derivative check (central FD, eps={eps:.2e}): gradient={g:.3e} "
+          f"jacobian_c={c:.3e} jacobian_g={gq:.3e} hessian={h:.3e}",
+          flush=True)
+
+
 def solve(problem: OCProblem, settings: Settings,
           init_vars: Optional[Primal] = None,
           init_y: Optional[YVec] = None,
@@ -250,10 +330,6 @@ def solve(problem: OCProblem, settings: Settings,
         raise ValueError(
             "fixed_iterations requires max_iterations >= 1 (a 0-trip loop "
             "would diverge from the convergence-tested semantics)")
-    if settings.logging.print_derivative_check_logs:
-        raise NotImplementedError(
-            "print_derivative_check_logs: the derivative check is not "
-            "ported yet")
     if settings.fused_iteration:
         from .fused_chain import _eligible, solve_fused
         if _eligible(problem, settings, coupled):
@@ -441,6 +517,10 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         return stat, r_ineq, err
 
     ev0 = problem.eval_model(vars0, y0, z0)
+    if settings.logging.print_derivative_check_logs:
+        # the reference's derivative-check channel (JAX sip.py:586-589);
+        # fused_chain._eligible sends a solve with it on to this loop
+        _print_derivative_check(problem, vars0, y0, z0, ev0, template)
     _, _, err0_fn = kkt_residuals(vars0, s0, y0, z0, zl0, zu0, ev0)
     e0_init = err0_fn(0.0)
     status_init = torch.where(

@@ -114,19 +114,19 @@ def test_settings_guards_and_logs(capsys):
                            torch.ones(1, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         P.solve(prob, P.Settings(fixed_iterations=True, max_iterations=0))
-    with pytest.raises(NotImplementedError):
-        P.solve(prob, P.Settings(logging=LoggingSettings(
-            print_derivative_check_logs=True)))
-    # the debug channels print per-scenario values and change nothing
+    # the debug channels print per-scenario values (the derivative check
+    # one line per solve) and change nothing
     quiet = P.solve(prob, P.Settings(max_iterations=2,
                                      fixed_iterations=True))
     loud = P.solve(prob, P.Settings(
         max_iterations=2, fixed_iterations=True, debug_check_finite=True,
         logging=LoggingSettings(print_logs=True,
                                 print_line_search_logs=True,
-                                print_search_direction_logs=True)))
+                                print_search_direction_logs=True,
+                                print_derivative_check_logs=True)))
     out = capsys.readouterr().out
     assert out.count("it=[") == 2 and "ls: alpha=" in out \
         and "dir: |dx|=" in out and "NONFINITE" not in out
+    assert out.count("derivative check (central FD") == 1
     for a, b in zip(tree_leaves(quiet), tree_leaves(loud)):
         assert torch.equal(a, b)

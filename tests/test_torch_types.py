@@ -78,7 +78,10 @@ def test_settings_reject_unported_paths():
     with pytest.raises(ValueError, match="cuda"):
         pset.Settings(riccati_backend="pallas")
     with pytest.raises(ValueError):
-        pset.Settings(riccati_backend="assoc")
+        pset.Settings(riccati_backend="lapack")
+    # the associative-scan chain backend (ops/lqr.py) is ported
+    assert pset.Settings(riccati_backend="assoc").riccati_backend == "assoc"
+    assert pset.RICCATI_BACKENDS == ("scan", "cuda", "assoc")
     # the fused line-search probe (ops/ls_probe.py) and the fused iteration
     # (ops/fused_iter.py, solver/fused_chain.py) are ported
     assert pset.Settings(fused_iteration=True).fused_iteration
