@@ -8,8 +8,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases; any failure raises and the script exits non-zero:
 
 1. Device: requires CUDA; prints the card and its power limit; TF32 off.
-2. Build: compiles, all at once, the native topology library
-   (native/topology.cpp, g++), the CUDA Riccati kernels (csrc/riccati.cu),
+2. Build: compiles, all at once, the CUDA Riccati kernels (csrc/riccati.cu),
    the fused line-search probe generated for each chain path's model and
    for phase 8's quadrotor (ops/ls_probe.py), the tree probe generated for robust_tree
    (csrc/ls_probe_tree.cuh) and the four whole-iteration kernels
@@ -109,9 +108,9 @@ reads the last.  A kernel's bound counts the bytes it reads and writes
 10. Variable dimensions and general constraints (BASELINE config 2).
    (a) Random float32 chain data (B=4096, T=50) at (n_max, m_max) =
    (3, 2), node k with 1 + (k mod 3) states and edge e with 1 + (e mod 2)
-   controls, padded by pad_lqr_data and factored and solved on "scan",
-   "cuda" and "assoc": statuses identical, the dead entries of x, u and y
-   exactly 0 on every backend, the solutions under compare's rule against
+   controls, padded by pad_lqr_data and factored and solved on "scan"
+   and "cuda": statuses identical, the dead entries of x, u and y exactly
+   0 on both backends, the solutions under compare's rule against
    float64 "scan", residuals logged; the Riccati kernels at (3, 2) against
    their twins on the padded data, timed, with launch configuration and
    ptxas line.  (b) tests/test_variable_dims_frontdoor.py's stage-varying
@@ -127,23 +126,8 @@ reads the last.  A kernel's bound counts the bytes it reads and writes
    by save_warm_start and loaded onto the card: a warm re-solve from it
    equals the one from the tensors in memory bit for bit.  (e) The
    derivative-check channel on the constrained problem at B=1, float64:
-   its four errors < 1e-6.  (f) The native topology library loaded, its
-   schedules equal to the NumPy builder's on robust_tree and on a random
-   tree of 4096 nodes.
-11. The associative-scan backend.  (a) Random chains, scenario 1 with a
-   non-PD R and scenario 2 a negative delta, at (4, 1) T=1024 B=16 in
-   float64 and float32, (4, 1) T=50 B=4096 and (16, 4) T=50 B=4096 in
-   float32: "assoc", "scan" (and "cuda" in float32) fail exactly those
-   two; "assoc" against "scan" over V, x, u and y within 1e-9 relative in
-   float64, under compare's rule against float64 "scan" in float32 at
-   T=50, logged at T=1024 float32; each backend's factor + solve ms.
-   (b) One 25-step call of phase 4's cartpole path on "assoc" (the fused
-   probe): usable_frac >= 0.99, the probe launched once per trip and no
-   Riccati kernel, step 1's statuses equal to "scan"'s on >= 0.99 and its
-   iterates under compare's rule against float64 "scan"
-   (compare_step1's share logged: see run_assoc_path); ms per step
-   beside phase 4's.
-12. The kernels line gives the Riccati kernels and the chain probe a
+   its four errors < 1e-6.
+11. The kernels line gives the Riccati kernels and the chain probe a
    record at the shapes of phases 8, 9 and 10 with those paths' launches;
    the last line is the device record.
 """
@@ -1863,10 +1847,10 @@ def _double(data):
 
 def check_padded_lqr(device):
     """Phase 10(a): random float32 chain data at (3, 2), padded to the
-    stage dims of padded_dims, factored and solved on "scan", "cuda" and
-    "assoc": statuses identical, dead entries of x, u and y exactly 0 on
-    every backend, live entries under compare's rule against float64
-    "scan", residuals logged.  Returns (records at the path's shape,
+    stage dims of padded_dims, factored and solved on "scan" and "cuda":
+    statuses identical, dead entries of x, u and y exactly 0 on both
+    backends, live entries under compare's rule against float64 "scan",
+    residuals logged.  Returns (records at the path's shape,
     launches of the "cuda" factor and solve)."""
     import torch
     from sip_optimal_control_tpu_torch import (Topology, compile_topology,
@@ -1880,7 +1864,7 @@ def check_padded_lqr(device):
     data = pad_lqr_data(random_chain(T, n, m, BATCH, VAR["seed"], device),
                         dims, sched)
     sols, status = {}, {}
-    for backend in ("scan", "cuda", "assoc"):
+    for backend in ("scan", "cuda"):
         if backend == "cuda":
             reset_counts()
         fact = lqr_factor(data, sched, backend)
@@ -2029,15 +2013,13 @@ DERIV_TOL = 1e-6       # tests/test_solver_extras.py:245-247
 
 
 def check_var_extras(device, constrained):
-    """Phase 10(d)-(f): the checkpoint of the constrained result re-solved
-    bit for bit, the derivative-check channel at B=1 in float64, the
-    native topology loader."""
+    """Phase 10(d)-(e): the checkpoint of the constrained result re-solved
+    bit for bit, the derivative-check channel at B=1 in float64."""
     import contextlib
     import io
     import tempfile
     import torch
-    from sip_optimal_control_tpu_torch import (Settings, Topology,
-                                               compile_topology, native)
+    from sip_optimal_control_tpu_torch import Settings
     from sip_optimal_control_tpu_torch.ops import cuda_build
     from sip_optimal_control_tpu_torch.solver.settings import \
         LoggingSettings
@@ -2090,172 +2072,6 @@ def check_var_extras(device, constrained):
     if not max(errs) < DERIV_TOL:
         raise AssertionError(f"derivative check errors {errs}")
 
-    # (f) the native topology loader: loaded, and its schedules the NumPy
-    # builder's on robust_tree and a random tree of 4096 nodes
-    lib = native.load()
-    if lib is None:
-        raise AssertionError("native topology library did not load")
-    (_, _, _, robust, _, _), _ = main_path_inputs(device, 1, "robust_tree")
-    rng = np.random.default_rng(0)
-    parents = [0] + [int(rng.integers(0, k + 1)) for k in range(1, 4095)]
-    trees = {"robust_tree": robust,
-             "random_4096": Topology.tree(0, parents, range(1, 4096))}
-    for name, topo in trees.items():
-        a = compile_topology(topo, use_native=True)
-        b = compile_topology(topo, use_native=False)
-        fields = ("child_offsets", "child_edges", "preorder", "postorder",
-                  "depth", "parent_edge", "parent_node")
-        same = (all(np.array_equal(getattr(a, f), getattr(b, f))
-                    for f in fields)
-                and len(a.levels_nodes) == len(b.levels_nodes)
-                and all(np.array_equal(x, z) for x, z in
-                        zip(a.levels_nodes + a.levels_edges,
-                            b.levels_nodes + b.levels_edges)))
-        log(f"native topology [{name}]: {topo.num_nodes} nodes, "
-            f"{a.num_levels} levels, library {lib._name}; schedule equal to "
-            f"the NumPy builder's {same}")
-        if not same:
-            raise AssertionError(f"native topology [{name}] differs")
-
-
-# ---------------------------------------------------------------------------
-# phase 11: the associative-scan backend
-# ---------------------------------------------------------------------------
-
-# (label, T, (n, m), B, dtype name, gated): JAX's stated use (long
-# horizon, small batch) in both precisions, then the paths' shapes
-ASSOC_CASES = (("cartpole_T1024_f64", 1024, (4, 1), 16, "float64", True),
-               ("cartpole_T1024_f32", 1024, (4, 1), 16, "float32", False),
-               ("cartpole_T50_f32", HORIZON, (4, 1), BATCH, "float32", True),
-               ("chain16_T50_f32", HORIZON, (16, 4), BATCH, "float32", True))
-ASSOC_F64_TOL = 1e-9        # relative, tests/test_golden_lqr.py:111
-
-
-def check_assoc_lqr(device, smi):
-    """Phase 11(a): "assoc" against "scan" (and "cuda" in float32) on
-    random chains, scenario 1 with a non-PD R, scenario 2 a negative
-    delta: statuses of "assoc" and "scan" identical and failing on the
-    same scenarios as "cuda"; float64 within ASSOC_F64_TOL relative,
-    float32 at T=50 under compare's rule against float64 "scan", at
-    T=1024 logged only; each backend's factor + solve ms."""
-    import torch
-    from sip_optimal_control_tpu_torch import (Topology, compile_topology,
-                                               lqr_factor, lqr_solve)
-    out = {}
-    for seed, (label, T, (n, m), B, dt, gated) in enumerate(ASSOC_CASES):
-        data = random_chain(T, n, m, B, 110 + seed, device)
-        R, delta = data.R.clone(), data.delta.clone()
-        R[1, T // 2] = -100.0 * torch.eye(m, device=device)
-        delta[2, T // 3, 0] = -1.0
-        data = dataclasses.replace(data, R=R, delta=delta)
-        data64 = _double(data)
-        if dt == "float64":
-            data = data64
-        sched = compile_topology(Topology.chain(T))
-        backends = ("scan", "assoc") if dt == "float64" else (
-            "scan", "assoc", "cuda")
-
-        def run(backend, d=data):
-            fact = lqr_factor(d, sched, backend)
-            return fact, lqr_solve(d, fact, sched, backend)
-
-        res = {b: run(b) for b in backends}
-        st = {b: f.status for b, (f, _) in res.items()}
-        ok = st["scan"] == 0
-        if ok.tolist()[:3] != [True, False, False] or int(ok.sum()) != B - 2:
-            raise AssertionError(f"{label}: statuses {st['scan'].tolist()}")
-        # every backend fails exactly the two bad scenarios; which failure
-        # each reports follows its own order (JAX's assoc reports a NaN
-        # from a singular combine as an F failure before an invalid
-        # delta, the kernels the F failure the G failure's NaNs cause)
-        for b in backends:
-            if not torch.equal(st[b] == 0, ok):
-                raise AssertionError(f"{label}: {b} statuses "
-                                     f"{st[b].tolist()}")
-
-        def fields(r):
-            fact, sol = r
-            return (fact.V, sol.x, sol.u, sol.y)
-
-        a, s = fields(res["assoc"]), fields(res["scan"])
-        diff = max(float(((x - y) / (1 + y.abs()))[ok].abs().max())
-                   for x, y in zip(a, s))
-        detail = ""
-        if dt == "float64":
-            if not diff <= ASSOC_F64_TOL:
-                raise AssertionError(f"{label}: assoc off scan by {diff}")
-        elif gated:
-            ref = fields(run("scan", data64))
-            _, detail = compare(label, "assoc", a, s, SOLVE_TOL, ok, ref)
-            diff_cuda = max(float((x - y)[ok].abs().max())
-                            for x, y in zip(a, fields(res["cuda"])))
-            detail += f"; max|assoc - cuda| {diff_cuda:.3e}"
-        # the run above warmed every backend; scan's many small ops take
-        # seconds a call at T=1024, so one timed call
-        ms = {b: time_ms(lambda b=b: run(b), reps=1 if b == "scan" else 5,
-                         warmup=0) for b in backends}
-        bar = (f"bar {ASSOC_F64_TOL}" if dt == "float64"
-               else "compare's rule" if gated else "not gated")
-        codes = ", ".join(f"{b} {st[b][:3].tolist()}" for b in backends)
-        log(f"assoc [{label}] ({smi}) B={B} T={T} (n, m)=({n}, {m}) {dt}: "
-            f"SUCCESS on the same {int(ok.sum())} scenarios on every "
-            f"backend (scenarios 0-2: {codes}); max |assoc - scan| / (1 + "
-            f"|scan|) over V, x, u, y {diff:.3e} ({bar}){detail}; factor + "
-            f"solve ms (CUDA events) "
-            + ", ".join(f"{b} {v:.3f}" for b, v in ms.items()))
-        out[label] = ms
-    return out
-
-
-def run_assoc_path(device, smi, standard_step_ms, batch=None):
-    """Phase 11(b): one call of phase 4's cartpole standard path (K=5, the
-    fused probe) with riccati_backend="assoc": usable_frac >= 0.99, the
-    probe launched once per trip and no Riccati kernel.  Step 1 against
-    "scan": statuses equal on SCAN_AGREEMENT of the scenarios, and the
-    iterates under compare's rule against float64 "scan" (assoc's error
-    at most COND_FACTOR times float32 scan's own).  compare_step1's share
-    is logged beside it: its bar holds a path to float32 scan's rounding,
-    which the Riccati kernels share (the same explicit-W formulation) and
-    the associative scan does not.  Returns the launches."""
-    import torch
-    batch = batch or BATCH
-    label, steps = "cartpole assoc", STEPS
-    mdl, state = main_path_inputs(device, batch)
-    step1 = {"scan": mpc_call(mdl, state, "scan", 1, fused_probe=False),
-             "cuda": mpc_call(mdl, state, "assoc", 1)}
-    share = compare_step1(step1, label=label)
-    ref = mpc_call(*main_path_inputs(device, batch, dtype=torch.float64),
-                   "scan", 1, fused_probe=False)
-    a, sc = step1["cuda"], step1["scan"]
-    agree = float((a.statuses[0] == sc.statuses[0]).float().mean())
-    err, detail = compare(label, "step 1 iterates",
-                          (a.x, a.vars.x, a.vars.u),
-                          (sc.x, sc.vars.x, sc.vars.u), 0.0, slice(None),
-                          (ref.x, ref.vars.x, ref.vars.u))
-    log(f"step 1 [{label}] against float64 scan: max|assoc - scan| "
-        f"{err:.3e}{detail}; statuses equal to scan's on {agree:.4f} (bar "
-        f"{SCAN_AGREEMENT}); compare_step1's share {share:.4f} (not gated)")
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reset_counts()
-    start.record()
-    out = mpc_call(mdl, state, "assoc", steps)
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_counts()
-    trips = PATHS["cartpole"]["trips"] * steps
-    check_launches(label, launches, {"ls_probe": trips})
-    q = quality(out)
-    step_ms = start.elapsed_time(end) / steps
-    log(f"path [{label}] ({smi}): {steps} steps, batch {batch}: "
-        f"{step_ms:.2f} ms per MPC step (CUDA events; phase 4's cuda "
-        f"path {standard_step_ms:.2f}); quality {json.dumps(q)}")
-    if agree < SCAN_AGREEMENT or q["usable_frac"] < QUALITY_USABLE:
-        raise AssertionError(f"{label}: agreement {agree}, usable "
-                             f"{q['usable_frac']}")
-    return launches
-
 
 # ---------------------------------------------------------------------------
 
@@ -2267,19 +2083,12 @@ PATH_PHASES = {"quadrotor": "8", "joint_theta": "9", "padded_lqr": "10(a)",
 def build_all(device):
     """Phase 2: every kernel library of the paths and the fused check, one
     nvcc each, all started together."""
-    from sip_optimal_control_tpu_torch import build_problem, native
+    from sip_optimal_control_tpu_torch import build_problem
     from sip_optimal_control_tpu_torch.ops import (cuda_build, fused_iter,
                                                    ls_probe)
     from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
 
-    def build_native():
-        t0 = time.perf_counter()
-        if native.load() is None:
-            raise AssertionError("the native topology library did not "
-                                 "build or load")
-        return native.library_path(), time.perf_counter() - t0
-
-    jobs = {"riccati": rc.build_library, "native_topology": build_native}
+    jobs = {"riccati": rc.build_library}
     for model in PATHS:
         prob, _ = path_problem(model, device, batch=1)
         fspec, fbounds, _ = prob.fused_ls
@@ -2300,7 +2109,7 @@ def build_all(device):
         for name, fut in futures.items():
             path, secs = fut.result()
             log(f"build[{name}]: {path} in {secs:.1f} s")
-            if secs > 0 and name != "native_topology":
+            if secs > 0:
                 # ptxas -v: registers and spills
                 log(cuda_build.ptxas_report(path))
     log(f"build: {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s "
@@ -2358,8 +2167,6 @@ def main():
             scan_first[model] = res["scan_first"]
             q = check_path(res)
             report_path(res, q)
-            if (model, fused) == ("cartpole", False):
-                standard_step_ms = 1e3 * res["seconds"][-1][0] / res["steps"]
             launches[path_label(res)] = res["launches"]
             phase_done(f"path {path_label(res)}")
     res = run_path(device, "robust_tree")
@@ -2386,12 +2193,7 @@ def main():
             run_var_path(device, label, smi, seed)
         phase_done(f"path {label}")
     check_var_extras(device, results["constrained"])
-    phase_done("checkpoint, derivative check, native topology")
-
-    # phase 11: the associative-scan backend
-    check_assoc_lqr(device, smi)
-    run_assoc_path(device, smi, standard_step_ms)
-    phase_done("assoc")
+    phase_done("checkpoint, derivative check")
 
     rows = []
     for kname in ("riccati_factor", "riccati_factor_gram",

@@ -99,59 +99,6 @@ def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return tri_solve(l, tri_solve(l, b, transpose=False), transpose=True)
 
 
-def _ge_solve_unrolled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """General (non-symmetric) solve a x = b by unrolled Gaussian
-    elimination with implicit partial pivoting by row selects (JAX
-    linalg.py:106-138).
-
-    a: [..., n, n]; b: [..., n, k].  Every op is elementwise over the
-    leading axes, with no host synchronisation; a zero pivot gives
-    non-finite entries, never an exception.
-    """
-    n = a.shape[-1]
-    rows_a = [a[..., i, :] for i in range(n)]        # each [..., n]
-    rows_b = [b[..., i, :] for i in range(n)]        # each [..., k]
-    for j in range(n):
-        # partial pivoting: the max-|a_ij| row among i >= j by a chain of
-        # compare-swaps (elementwise selects, no gathers)
-        for i in range(j + 1, n):
-            swap = (rows_a[i][..., j].abs()
-                    > rows_a[j][..., j].abs())[..., None]
-            rows_a[j], rows_a[i] = (torch.where(swap, rows_a[i], rows_a[j]),
-                                    torch.where(swap, rows_a[j], rows_a[i]))
-            rows_b[j], rows_b[i] = (torch.where(swap, rows_b[i], rows_b[j]),
-                                    torch.where(swap, rows_b[j], rows_b[i]))
-        inv_p = 1.0 / rows_a[j][..., j]
-        for i in range(j + 1, n):
-            f = (rows_a[i][..., j] * inv_p)[..., None]
-            rows_a[i] = rows_a[i] - f * rows_a[j]
-            rows_b[i] = rows_b[i] - f * rows_b[j]
-    xs = [None] * n
-    for i in range(n - 1, -1, -1):
-        s = rows_b[i]
-        for k in range(i + 1, n):
-            s = s - rows_a[i][..., k][..., None] * xs[k]
-        xs[i] = s / rows_a[i][..., i][..., None]
-    return torch.stack(xs, dim=-2)
-
-
-def ge_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve a x = b for general square a; b: [..., n] or [..., n, k]
-    (JAX linalg.py:141-151).  Unrolled up to _UNROLL_LIMIT, LU above it
-    through ``torch.linalg.solve_ex`` without its error check (which would
-    read the status on the host and raise): a singular ``a`` gives
-    non-finite entries in both forms, for the caller to turn into a
-    status."""
-    vec = b.dim() == a.dim() - 1
-    if vec:
-        b = b[..., None]
-    if a.shape[-1] <= _UNROLL_LIMIT:
-        x = _ge_solve_unrolled(a, b)
-    else:
-        x, _ = torch.linalg.solve_ex(a, b, check_errors=False)
-    return x[..., 0] if vec else x
-
-
 def sym(a: torch.Tensor) -> torch.Tensor:
     """Symmetrize; the recursion only guarantees the lower triangle
     analytically (reference mirrors lower->upper, helpers.cpp:155-158)."""

@@ -24,10 +24,8 @@ Layout: every tensor leads with the scenario batch axis, then the node or
 edge axis ([B, N, n, n], [B, E, m, n], ...).  The chain recursion is a
 Python loop over stages, each step one batched op over all scenarios;
 statuses are int32 tensors [B].  ``riccati_backend="cuda"`` runs the same
-recursion in the hand-written kernels of ops/riccati_cuda.py;
-``riccati_backend="assoc"`` computes the same factor products by an
-associative scan over the horizon (O(log T) rounds of batched ops, JAX
-lqr.py:274-509).  Other trees
+recursion in the hand-written kernels of ops/riccati_cuda.py, and so
+does ``"assoc"`` (see ``_check_backend``).  Other trees
 run level-synchronously (JAX lqr.py:511-787): a Python loop over depth
 levels, deepest first, each level one batched op over its nodes and all
 scenarios, the cost-to-go contributions summed into the parents with
@@ -49,7 +47,7 @@ import torch
 
 from ..types import (Dimensions, FactorStatus, Topology, TopologySchedule,
                      add_at_nodes, compile_topology, edge_nodes)
-from .linalg import cho_solve, cholesky_with_ok, ge_solve
+from .linalg import cho_solve, cholesky_with_ok
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,188 +268,6 @@ def _solve_root(data: LQRData, fact: LQRFactorization, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# chain, parallel in time: associative-scan Riccati (JAX lqr.py:274-509)
-# ---------------------------------------------------------------------------
-#
-# Eliminating the control analytically turns the backward recursion into
-# the linear-fractional map
-#
-#   V_p = J + Abar^T (I + V_c C)^{-1} V_c Abar,
-#   v_p = eta + Abar^T (I + V_c C)^{-1} (v_c + V_c bbar),
-#
-# with the per-edge element (Abar, bbar, C, eta, J):
-#   Abar = A - B R^{-1} M^T,  bbar = c_child - B R^{-1} r,
-#   C = delta_child + B R^{-1} B^T,  eta = q_parent - M R^{-1} r,
-#   J = Q_parent - M R^{-1} M^T.
-# Such elements compose associatively, so every V_k comes out of one
-# suffix scan; the stagewise products (F, W, G, K) then follow for all
-# edges in one batched step.  The solve's backward (v) and forward (x)
-# passes are affine recursions, scanned the same way.  Requires R SPD
-# stage by stage (always true of the solver's condensed R).
-#
-# Scan form: Hillis-Steele doubling over the stage axis (dim 1), as JAX's
-# (it took that form to dodge an XLA:CPU miscompile): ceil(log2(T + 1))
-# rounds, each ONE combine of contiguous slices over every scenario and
-# stage at once.  Blelloch's up/down sweep does O(T) combines instead of
-# O(T log T) but in twice the rounds; in eager PyTorch each round costs
-# the same few hundred launches whatever its width, and the launches, not
-# the arithmetic, bound the small-batch, long-horizon case this backend
-# is for.  Only the current round's elements are kept.
-
-class _QuadElem(NamedTuple):
-    A: torch.Tensor    # [B, L, n, n]
-    b: torch.Tensor    # [B, L, n]
-    C: torch.Tensor    # [B, L, n, n]
-    eta: torch.Tensor  # [B, L, n]
-    J: torch.Tensor    # [B, L, n, n]
-
-
-class _AffineElem(NamedTuple):
-    T: torch.Tensor    # [B, L, n, n]
-    o: torch.Tensor    # [B, L, n]
-
-
-def _assoc_scan(fn, xs, suffix: bool):
-    """Inclusive scan along dim 1 by recursive doubling: the prefix
-    products out[i] = x[0] . ... . x[i], or with ``suffix`` out[i] = x[i]
-    . ... . x[L-1].  ``fn(left, right)`` composes an earlier range with
-    the adjacent later one.  The suffix scan is JAX's prefix scan of the
-    flipped sequence written without the flips (same products, same
-    order)."""
-    L = xs[0].shape[1]
-    out, d = xs, 1
-    while d < L:
-        comb = fn(type(out)(*(a[:, :-d] for a in out)),
-                  type(out)(*(a[:, d:] for a in out)))
-        out = type(out)(*(
-            torch.cat([c, a[:, L - d:]] if suffix else [a[:, :d], c], dim=1)
-            for a, c in zip(out, comb)))
-        d *= 2
-    return out
-
-
-def _combine_elems(left: _QuadElem, right: _QuadElem) -> _QuadElem:
-    """Associative composition; ``left`` is closer to the root (JAX
-    lqr.py:345-372)."""
-    n = left.A.shape[-1]
-    eye = torch.eye(n, dtype=left.A.dtype, device=left.A.device)
-    # (I + C_L J_R)^{-1} applied to [A_L | C_L | b_L - C_L eta_R]
-    ic = ge_solve(eye + left.C @ right.J, torch.cat(
-        [left.A, left.C, (left.b - _mv(left.C, right.eta))[..., None]],
-        dim=-1))
-    iA, iC, ib = ic[..., :n], ic[..., n:2 * n], ic[..., 2 * n]
-    # (I + J_R C_L)^{-1} applied to [eta_R + J_R b_L | J_R A_L]
-    jc = ge_solve(eye + right.J @ left.C, torch.cat(
-        [(right.eta + _mv(right.J, left.b))[..., None], right.J @ left.A],
-        dim=-1))
-    AlT = left.A.transpose(-1, -2)
-    return _QuadElem(
-        A=right.A @ iA,
-        b=_mv(right.A, ib) + right.b,
-        C=right.A @ iC @ right.A.transpose(-1, -2) + right.C,
-        eta=_mv(AlT, jc[..., 0]) + left.eta,
-        J=AlT @ jc[..., 1:] + left.J)
-
-
-def _chain_elements(data: LQRData):
-    """Per-edge elements and the terminal element carrying (Q_T, q_T),
-    stacked [B, T+1, ...]; and whether every R_e is SPD, per scenario."""
-    T_h = data.A.shape[1]
-    R_chol, r_ok = cholesky_with_ok(data.R)
-    Rinv_Mt = cho_solve(R_chol, data.M.transpose(-1, -2))    # [B, T, m, n]
-    Rinv_Bt = cho_solve(R_chol, data.B.transpose(-1, -2))
-    Rinv_r = cho_solve(R_chol, data.r)                        # [B, T, m]
-    Abar = data.A - data.B @ Rinv_Mt
-    bbar = data.c[:, 1:] - _mv(data.B, Rinv_r)
-    C = torch.diag_embed(data.delta[:, 1:]) + data.B @ Rinv_Bt
-    eta = data.q[:, :T_h] - _mv(data.M, Rinv_r)
-    J = data.Q[:, :T_h] - data.M @ Rinv_Mt
-
-    zero_mat = torch.zeros_like(data.Q[:, :1])
-    zero_vec = torch.zeros_like(data.q[:, :1])
-    elems = _QuadElem(
-        A=torch.cat([Abar, zero_mat], dim=1),
-        b=torch.cat([bbar, zero_vec], dim=1),
-        C=torch.cat([C, zero_mat], dim=1),
-        eta=torch.cat([eta, data.q[:, T_h:]], dim=1),
-        J=torch.cat([J, data.Q[:, T_h:]], dim=1))
-    return elems, r_ok.all(-1)
-
-
-def _factor_chain_assoc(data: LQRData) -> LQRFactorization:
-    """Associative-scan factorization (JAX lqr.py:407-434): the same
-    LQRFactorization products as the sequential recursion, so every solve
-    backend consumes it.  The status is per scenario: a NaN from a
-    singular (I + C J) anywhere in a scenario's stages is its F failure."""
-    elems, r_ok = _chain_elements(data)
-    V = _assoc_scan(_combine_elems, elems, suffix=True).J   # [B, T+1, n, n]
-
-    F_chol, sd, sdi, f_status = _factor_F(data.delta, V)
-    W = _regularized_W(F_chol[:, 1:], sdi[:, 1:])
-    G_chol, K, _, g_ok = _edge_factor(W, data.A, data.B, data.M, data.R)
-
-    nan_fail = torch.isnan(V).flatten(1).any(-1)
-    status = _merge_status(
-        _status(r_ok, FactorStatus.G_FACTORIZATION_FAILURE),
-        _merge_status(
-            _status(~nan_fail, FactorStatus.F_FACTORIZATION_FAILURE),
-            _merge_status(f_status.amax(-1), _g_status(g_ok))))
-    return LQRFactorization(V=V, F_chol=F_chol, sqrt_delta=sd,
-                            sqrt_delta_inv=sdi, W=W, K=K, G_chol=G_chol,
-                            status=status)
-
-
-def _comb_bwd(left: _AffineElem, right: _AffineElem) -> _AffineElem:
-    # v_p = o_L + T_L v_c applied to the composed later suffix
-    return _AffineElem(T=left.T @ right.T, o=_mv(left.T, right.o) + left.o)
-
-
-def _comb_fwd(left: _AffineElem, right: _AffineElem) -> _AffineElem:
-    # x_{i+1} = T_R (T_L x + o_L) + o_R: the later map on the earlier one
-    return _AffineElem(T=right.T @ left.T, o=_mv(right.T, left.o) + right.o)
-
-
-def _solve_chain_assoc(data: LQRData, fact: LQRFactorization) -> LQRSolution:
-    """Parallel-in-time solve (JAX lqr.py:442-509): an affine suffix scan
-    for the costate gradient v, the gains applied to every edge at once,
-    an affine prefix scan for the rollout.  The elements are recomputed
-    from the data, so any backend's factorization serves."""
-    T_h = data.A.shape[1]
-    n = data.Q.shape[-1]
-    elems, _ = _chain_elements(data)
-    Vc = fact.V[:, 1:]
-    eye = torch.eye(n, dtype=data.Q.dtype, device=data.Q.device)
-    # Tmat = Abar^T (I + V_c C)^{-1} through the transposed system;
-    # eta_tilde = eta + Tmat V_c bbar
-    Tmat = ge_solve((eye + Vc @ elems.C[:, :T_h]).transpose(-1, -2),
-                    elems.A[:, :T_h]).transpose(-1, -2)
-    eta_t = elems.eta[:, :T_h] + _mv(Tmat, _mv(Vc, elems.b[:, :T_h]))
-    aff = _AffineElem(T=torch.cat([Tmat, torch.zeros_like(Vc[:, :1])], 1),
-                      o=torch.cat([eta_t, elems.eta[:, T_h:]], 1))
-    v = _assoc_scan(_comb_bwd, aff, suffix=True).o          # [B, T+1, n]
-
-    f = data.delta[:, 1:] * v[:, 1:] - data.c[:, 1:]
-    g = v[:, 1:] - _mv(fact.W, f)
-    h = data.r + _tmv(data.B, g)
-    k = -cho_solve(fact.G_chol, h)
-
-    x_root, _ = _solve_root(data, fact, v)
-    # x_child = E x_par + e, E = Phi (A + B K), e = Phi (B k + c - delta v),
-    # Phi = (I + delta V)^{-1}
-    F_c = (fact.F_chol[:, 1:], fact.sqrt_delta[:, 1:],
-           fact.sqrt_delta_inv[:, 1:])
-    E = _F_inv_apply(*F_c, data.A + data.B @ fact.K)
-    e0 = _F_inv_apply(*F_c, _mv(data.B, k) + data.c[:, 1:]
-                      - data.delta[:, 1:] * v[:, 1:])
-    pre = _assoc_scan(_comb_fwd, _AffineElem(T=E, o=e0), suffix=False)
-    x_tail = _mv(pre.T, x_root[:, None]) + pre.o               # [B, T, n]
-    x = torch.cat([x_root[:, None], x_tail], dim=1)
-    u = k + _mv(fact.K, x[:, :T_h])
-    y = v + _mv(fact.V, x)
-    return LQRSolution(x=x, u=u, y=y)
-
-
-# ---------------------------------------------------------------------------
 # general trees: level-synchronous recursion (JAX lqr.py:511-602)
 # ---------------------------------------------------------------------------
 
@@ -563,9 +379,15 @@ def _contiguous(data: LQRData) -> LQRData:
                       for f in dataclasses.fields(data)})
 
 
-def _check_backend(backend: str) -> None:
+def _check_backend(backend: str) -> str:
+    """The chain backend that runs for ``backend``.  "assoc" names the JAX
+    package's associative-scan backend; it is accepted so that settings
+    written for that package run unchanged, and runs the kernels: on the
+    H100 the associative scan took 8-15x the kernels' time at every shape
+    measured, T=1024 at B=16 included (PERF.md)."""
     if backend not in ("scan", "cuda", "assoc"):
         raise ValueError(f"unknown Riccati backend {backend!r}")
+    return "cuda" if backend == "assoc" else backend
 
 
 def lqr_factor(data: LQRData, sched: TopologySchedule,
@@ -576,22 +398,18 @@ def lqr_factor(data: LQRData, sched: TopologySchedule,
     with the per-scenario status returned as int32 data in ``fact.status``.
 
     ``backend`` selects the chain implementation: "scan" runs the
-    recursion above, a Python loop over the horizon; "assoc" the
-    associative scan, O(log T) rounds of batched ops, for long horizons
-    and small batches (it also needs every R_e SPD); "cuda" the
+    recursion above; "cuda" (and "assoc", see ``_check_backend``) runs the
     hand-written kernel (ops/riccati_cuda.py), whose plain twin serves CPU
-    tensors.  All three produce the same LQRFactorization products.  Trees
-    run the level-synchronous recursion whatever the backend, as in the
-    JAX package.
+    tensors.  Both produce the same LQRFactorization products.  Trees run
+    the level-synchronous recursion whatever the backend, as in the JAX
+    package.
     """
-    _check_backend(backend)
+    backend = _check_backend(backend)
     if not sched.topology.is_chain:
         return _factor_tree(data, sched)
     if backend == "cuda":
         from .riccati_cuda import factor_chain_cuda
         return factor_chain_cuda(_contiguous(data))
-    if backend == "assoc":
-        return _factor_chain_assoc(data)
     return _factor_chain(data)
 
 
@@ -602,15 +420,13 @@ def lqr_solve(data: LQRData, fact: LQRFactorization,
 
     Any solve backend consumes any backend's factorization (same
     products)."""
-    _check_backend(backend)
+    backend = _check_backend(backend)
     if not sched.topology.is_chain:
         return _solve_tree(data, fact, sched)
     if backend == "cuda":
         from .riccati_cuda import solve_chain_cuda
         return solve_chain_cuda(_contiguous(data), LQRFactorization(
             *(t.contiguous() for t in fact)))
-    if backend == "assoc":
-        return _solve_chain_assoc(data, fact)
     return _solve_chain(data, fact)
 
 

@@ -138,12 +138,12 @@ class Settings:
     # apply_K operator (reference: helpers.cpp:953-977)
     iterative_refinement_steps: int = 0
     # Chain-Riccati backend: "scan" (plain PyTorch recursion over the
-    # horizon), "cuda" (the hand-written Hopper kernels of
-    # ops/riccati_cuda.py; CPU tensors take their plain twins) or "assoc"
-    # (associative scan over the horizon, O(log T) rounds of batched ops:
-    # long horizons with small batches; needs SPD R, as the solver's
-    # condensed R is).  Trees always use the level-synchronous recursion;
-    # the fused iteration's kernels ignore the setting.
+    # horizon) or "cuda" (the hand-written Hopper kernels of
+    # ops/riccati_cuda.py; CPU tensors take their plain twins).  "assoc",
+    # the JAX package's associative scan, is accepted so that its settings
+    # run unchanged, and runs the kernels (ops/lqr.py::_check_backend).
+    # Trees always use the level-synchronous recursion; the fused
+    # iteration's kernels ignore the setting.
     riccati_backend: str = "scan"
     # Whole-iteration fusion (ops/fused_iter.py, solver/fused_chain.py):
     # eligible problems (build_problem's ``fused_iter`` payload: the fused

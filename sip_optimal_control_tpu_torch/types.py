@@ -319,27 +319,14 @@ def compile_topology(topology: Topology,
     children are visited in edge order; preorder via DFS; postorder is the
     reversed preorder.
 
-    The graph-builder step runs in the native C++ component
-    (native/topology.cpp, built by g++ at first use) when available, with
-    this NumPy implementation as the semantically identical fallback
-    (``use_native=False`` forces it, as do a missing compiler and
-    ``SOC_DISABLE_NATIVE``; the tests assert agreement), as in the JAX
-    package (types.py:313-335).
+    ``use_native`` is accepted so that calls written for the JAX package
+    run unchanged; this package has the NumPy builder only, which is what
+    JAX runs when its native helper is absent (types.py:313-335).
     """
     num_edges = topology.num_edges
     num_nodes = topology.num_nodes
     root = topology.root
 
-    if use_native:
-        from . import native as _native
-        try:
-            res = _native.compile_topology_native(
-                num_edges, root, topology.edge_parents,
-                topology.edge_children)
-        except ValueError as err:
-            raise TopologyError(str(err)) from None
-        if res is not None:
-            return _schedule_from_arrays(topology, *res)
     if root < 0 or root >= num_nodes:
         raise TopologyError(f"root {root} out of range [0, {num_nodes})")
 

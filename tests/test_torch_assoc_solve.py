@@ -1,5 +1,6 @@
-"""The port's solver and closed loop on the associative-scan Riccati
-backend against the JAX package's.
+"""The port's solver and closed loop at riccati_backend="assoc" against
+the JAX package's associative-scan backend (the port runs its Riccati
+kernels for the setting, their plain twins on the CPU).
 
 The bounded double integrator of tests/test_lqr_parallel.py:203-220 at
 that test's bar: controls (and run_mpc's states) within 1e-6 of JAX's,
@@ -46,7 +47,7 @@ def _jax_solve():
 
 
 def test_bounded_double_integrator_solve_matches_jax():
-    """End-to-end solve on the assoc backend (tests/test_lqr_parallel.py:
+    """End-to-end solve at "assoc" (tests/test_lqr_parallel.py:
     203-220): JAX's assoc solve's statuses and iterations, controls within
     1e-6, and the port's own scan solve's controls within 1e-6."""
     want = _jax_solve()
@@ -64,7 +65,7 @@ def test_bounded_double_integrator_solve_matches_jax():
 
 
 def test_run_mpc_on_assoc_matches_jax():
-    """run_mpc on the assoc backend: JAX's vmapped run_mpc's statuses and
+    """run_mpc at "assoc": JAX's vmapped run_mpc's statuses and
     iterations, states and controls within 1e-6."""
     steps = 3
     spec, dims, topo, lo, up = _jax_problem()

@@ -1,15 +1,18 @@
-"""The port's associative-scan Riccati backend, ge_solve and the padded
-variable-dimension LQR against the JAX package.
+"""riccati_backend="assoc" and the padded variable-dimension LQR against
+the JAX package.
 
-Tolerances: the port and JAX run the same element algebra in the same
-scan order, so on well-conditioned float64 data (delta in [0.5, 1.5]) they
-agree to roundoff: 1e-10.  Against the sequential recursion the bars are
-tests/test_lqr_parallel.py's (factor 1e-8, solution 1e-7, residual 1e-9);
-against the C++ golden fixtures tests/test_golden_lqr.py:98-112's (1e-9).
-pad_lqr_data is elementwise masking, so port and JAX agree exactly, and
-dead solution entries are exactly 0 on every backend
-(tests/test_lqr.py:251-257).  The end-to-end solves on the backend are
-tests/test_torch_assoc_solve.py's.
+The port accepts "assoc", the JAX package's associative-scan backend, so
+that settings written for that package run unchanged, and runs the CUDA
+Riccati kernels for it (their plain twins on CPU tensors:
+ops/lqr.py::_check_backend).  Tolerances: on well-conditioned float64
+data (delta in [0.5, 1.5]) the two orders of operation agree with JAX's
+associative scan to roundoff: 1e-10.  Against the sequential recursion the
+bars are tests/test_lqr_parallel.py's (factor 1e-8, solution 1e-7,
+residual 1e-9); against the C++ golden fixtures
+tests/test_golden_lqr.py:98-112's (1e-9).  pad_lqr_data is elementwise
+masking, so port and JAX agree exactly, and dead solution entries are
+exactly 0 on every backend (tests/test_lqr.py:251-257).  The end-to-end
+solves on the setting are tests/test_torch_assoc_solve.py's.
 """
 
 import dataclasses
@@ -23,17 +26,14 @@ import torch
 
 import sip_optimal_control_tpu as J
 from sip_optimal_control_tpu.ops import kkt as JK
-from sip_optimal_control_tpu.ops import linalg as JL
 from sip_optimal_control_tpu.ops import lqr as JQ
 import sip_optimal_control_tpu_torch as P
 from sip_optimal_control_tpu_torch.ops import kkt as PK
-from sip_optimal_control_tpu_torch.ops import linalg as PL
 from sip_optimal_control_tpu_torch.ops import lqr as PQ
 
 from test_golden_lqr import _load_cases
 from test_kkt import make_regs, random_rhs, synthetic_model
 from test_lqr import make_tree_problem
-from test_lqr_parallel import elem_quadratic_form
 from test_torch_lqr import random_chain
 
 _TOL = 1e-10
@@ -48,8 +48,7 @@ def _port(cls, jax_obj):
 def _jax_case():
     """One batch through JAX's assoc factor and solve (jitted, vmapped),
     shared by the parity and status tests: scenarios 0 and 3 regular,
-    1 with a non-SPD R (the assoc factor's stricter requirement), 2 with
-    an invalid delta."""
+    1 with a non-SPD R, 2 with an invalid delta."""
     T, n, m = 8, 3, 2
     jdata = random_chain(T, n, m, 4, seed=6)
     jdata = dataclasses.replace(
@@ -63,69 +62,8 @@ def _jax_case():
     return T, jdata, fact, sol
 
 
-def test_combine_matches_jax_and_schur_elimination():
-    """The element composition against JAX's on the same random elements
-    and against eliminating the shared middle state
-    (tests/test_lqr_parallel.py::test_combine_matches_schur_elimination)."""
-    rng = np.random.default_rng(0)
-    n = 3
-
-    def rand_elem():
-        s = rng.standard_normal((n, n))
-        sC = rng.standard_normal((n, n))
-        return dict(A=0.7 * rng.standard_normal((n, n)),
-                    b=rng.standard_normal(n),
-                    C=sC @ sC.T + 0.5 * np.eye(n),
-                    eta=rng.standard_normal(n),
-                    J=s @ s.T + 0.8 * np.eye(n))
-
-    eL, eR = rand_elem(), rand_elem()
-    want = JQ._combine_elems(JQ._QuadElem(**eL), JQ._QuadElem(**eR))
-
-    def port_elem(e):        # batch 1, one element
-        return PQ._QuadElem(**{k: torch.as_tensor(v)[None, None]
-                               for k, v in e.items()})
-
-    got = PQ._combine_elems(port_elem(eL), port_elem(eR))
-    for name in PQ._QuadElem._fields:
-        np.testing.assert_allclose(getattr(got, name)[0, 0].numpy(),
-                                   np.asarray(getattr(want, name)),
-                                   rtol=_TOL, atol=_TOL, err_msg=name)
-
-    HL, lL = elem_quadratic_form(tuple(eL.values()), n)
-    HR, lR = elem_quadratic_form(tuple(eR.values()), n)
-    H = np.zeros((3 * n, 3 * n))
-    lin = np.zeros(3 * n)
-    H[:2 * n, :2 * n] += HL
-    H[n:, n:] += HR
-    lin[:2 * n] += lL
-    lin[n:] += lR
-    keep, mid = np.r_[0:n, 2 * n:3 * n], np.r_[n:2 * n]
-    Hkm = H[np.ix_(keep, mid)]
-    Hmm = H[np.ix_(mid, mid)]
-    Hs = H[np.ix_(keep, keep)] - Hkm @ np.linalg.solve(Hmm, Hkm.T)
-    ls = lin[keep] - Hkm @ np.linalg.solve(Hmm, lin[mid])
-    Hc, lc = elem_quadratic_form(
-        tuple(getattr(got, k)[0, 0].numpy() for k in PQ._QuadElem._fields),
-        n)
-    np.testing.assert_allclose(Hc, Hs, atol=1e-10)
-    np.testing.assert_allclose(lc, ls, atol=1e-10)
-
-
-def test_chain_elements_match_jax():
-    T, n, m, B = 7, 3, 2, 2
-    jdata = random_chain(T, n, m, B, seed=1)
-    want, _, want_ok = jax.vmap(JQ._chain_elements)(jdata)
-    got, ok = PQ._chain_elements(_port(P.LQRData, jdata))
-    assert ok.tolist() == np.asarray(want_ok).tolist() == [True] * B
-    for name in PQ._QuadElem._fields:
-        np.testing.assert_allclose(getattr(got, name).numpy(),
-                                   np.asarray(getattr(want, name)),
-                                   rtol=_TOL, atol=_TOL, err_msg=name)
-
-
 def test_factor_solve_match_jax():
-    """assoc against JAX's assoc on the regular scenarios: roundoff."""
+    """"assoc" against JAX's assoc on the regular scenarios: roundoff."""
     T, jdata, jfact, jsol = _jax_case()
     data = _port(P.LQRData, jdata)
     sched = P.compile_topology(P.Topology.chain(T))
@@ -145,22 +83,25 @@ def test_factor_solve_match_jax():
 
 
 def test_failure_statuses_per_scenario():
-    """Non-SPD R fails the assoc factor and an invalid delta propagates,
-    each in its own scenario only, with JAX's statuses
-    (tests/test_lqr_parallel.py:186-200)."""
+    """Non-SPD R and an invalid delta fail their own scenario only, the
+    same scenarios as JAX's assoc factor (tests/test_lqr_parallel.py:
+    186-200); the codes are the kernel route's, which reports the
+    failures in the TPU kernel wrapper's order (ROADMAP Queue 3)."""
     T, jdata, jfact, _ = _jax_case()
     want = np.asarray(jfact.status).tolist()
     assert want[0] == want[3] == P.FactorStatus.SUCCESS
     assert want[1] == P.FactorStatus.G_FACTORIZATION_FAILURE
     assert want[2] != P.FactorStatus.SUCCESS
     sched = P.compile_topology(P.Topology.chain(T))
-    got = P.lqr_factor(_port(P.LQRData, jdata), sched, "assoc")
-    assert got.status.tolist() == want
+    data = _port(P.LQRData, jdata)
+    got = P.lqr_factor(data, sched, "assoc").status.tolist()
+    assert [g != 0 for g in got] == [w != 0 for w in want]
+    assert got == P.lqr_factor(data, sched, "cuda").status.tolist()
 
 
 @pytest.mark.parametrize("T,n,m", [(6, 3, 1), (33, 4, 2), (64, 6, 3)])
 def test_factor_solve_match_scan(T, n, m):
-    """assoc against the port's scan at tests/test_lqr_parallel.py's bars
+    """"assoc" against the port's scan at tests/test_lqr_parallel.py's bars
     (factor 1e-8, solution 1e-7) and the KKT residual oracle (1e-9)."""
     data = _port(P.LQRData, random_chain(T, n, m, 2, seed=T))
     sched = P.compile_topology(P.Topology.chain(T))
@@ -181,8 +122,8 @@ def test_factor_solve_match_scan(T, n, m):
 @pytest.mark.parametrize("factor_backend", BACKENDS)
 def test_any_solve_consumes_any_factorization(factor_backend):
     """Every solve backend on every backend's factorization ("cuda" on CPU
-    tensors runs the kernels' plain twins): the same solution, and the
-    assoc solve recomputes its elements from the data."""
+    tensors runs the kernels' plain twins, as does "assoc"): the same
+    solution."""
     T, n, m = 10, 3, 2
     data = _port(P.LQRData, random_chain(T, n, m, 2, seed=4))
     sched = P.compile_topology(P.Topology.chain(T))
@@ -255,7 +196,7 @@ def test_batch_equals_each_scenario():
 
 
 def test_golden_chain_fixtures():
-    """assoc against the C++ reference's golden chains at 1e-9
+    """"assoc" against the C++ reference's golden chains at 1e-9
     (tests/test_golden_lqr.py:98-112)."""
     chains = [c for c in _load_cases() if c[3] == 0]
     assert len(chains) == 4
@@ -272,50 +213,6 @@ def test_golden_chain_fixtures():
             assert err < 1e-9, (T, n, m, name, err)
 
 
-def _singular(n):
-    a = np.random.default_rng(n).standard_normal((n, n))
-    a[1] = 0.0                                  # a zero row
-    return a
-
-
-@pytest.mark.parametrize("case", ["pivoting", "vector_rhs", "batched",
-                                  "large", "singular"])
-def test_ge_solve_matches_jax(case):
-    """ge_solve against JAX's: unrolled at n <= 24 (a zero leading pivot
-    forces row swaps), LU above; a singular matrix gives the same
-    non-finite entries in both packages."""
-    rng = np.random.default_rng(7)
-    if case == "pivoting":
-        a = rng.standard_normal((4, 4))
-        a[0, 0] = 0.0
-        a[2, 1] = 1e-12
-        b = rng.standard_normal((4, 3))
-    elif case == "vector_rhs":
-        a, b = rng.standard_normal((5, 5)), rng.standard_normal(5)
-    elif case == "batched":
-        a = rng.standard_normal((2, 3, 6, 6))
-        b = rng.standard_normal((2, 3, 6, 2))
-    elif case == "large":
-        a = rng.standard_normal((2, 30, 30)) + 5.0 * np.eye(30)
-        b = rng.standard_normal((2, 30, 4))
-    else:
-        a = np.stack([_singular(4), np.eye(4)])
-        b = rng.standard_normal((2, 4, 2))
-    want = np.asarray(JL.ge_solve(jnp.asarray(a), jnp.asarray(b)))
-    got = PL.ge_solve(torch.as_tensor(a), torch.as_tensor(b)).numpy()
-    assert got.shape == want.shape
-    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
-    if case == "singular":
-        assert not np.isfinite(got[0]).any()
-        assert np.isfinite(got[1]).all()
-    fin = np.isfinite(want)
-    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-10, atol=1e-12)
-    # and a solution of the system
-    if case != "singular":
-        lhs = a @ (got[..., None] if b.ndim == a.ndim - 1 else got)
-        np.testing.assert_allclose(lhs.reshape(b.shape), b, atol=1e-9)
-
-
 def _dims(state_dims, control_dims):
     N, E = len(state_dims), len(control_dims)
     return dict(theta_dim=0, state_dims=state_dims, control_dims=control_dims,
@@ -328,7 +225,8 @@ def test_pad_lqr_data_matches_jax(shape):
     """pad_lqr_data and dimension_masks against JAX's on
     tests/test_lqr.py:235-261's tree and on a chain; dead entries exactly 0
     through every backend the topology takes (trees: the level recursion;
-    chains: scan, assoc and the cuda kernels' plain twins)."""
+    chains: scan, and the cuda kernels' plain twins, also as
+    "assoc")."""
     rng = np.random.default_rng(6)
     if shape == "tree":
         parents, children = [0, 0, 1, 1], [1, 2, 3, 4]

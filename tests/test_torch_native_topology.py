@@ -1,22 +1,19 @@
-"""The port's native (C++) graph builder: its own copy of topology.cpp,
-built by g++ into the package's _build/ directory.
+"""compile_topology's ``use_native`` keyword against the JAX package's
+native (C++) and NumPy graph builders.
 
-Mirrors tests/test_native_topology.py (:28 every shape against the NumPy
-builder, :43 the same invalid topologies rejected, :60 large random trees),
-holds the port's schedules equal to the JAX package's compile_topology,
-and checks JAX's documented fallbacks: SOC_DISABLE_NATIVE and a missing
-compiler give the NumPy builder's schedule.  Index arrays are compared
-exactly.
+The port has the NumPy builder only and accepts ``use_native`` so that
+calls written for the JAX package run unchanged.  Mirrors
+tests/test_native_topology.py (:28 every shape, :43 the same invalid
+topologies rejected, :60 large random trees): the port's schedule with
+either value of the keyword equals JAX's from both of its builders.  Index
+arrays are compared exactly.
 """
-
-import subprocess
 
 import numpy as np
 import pytest
 
 import sip_optimal_control_tpu as J
 import sip_optimal_control_tpu_torch as P
-from sip_optimal_control_tpu_torch import native
 
 FIELDS = ("child_offsets", "child_edges", "preorder", "postorder", "depth",
           "parent_edge", "parent_node")
@@ -47,23 +44,24 @@ def _same(a, b, name):
         np.testing.assert_array_equal(x, y, err_msg=name)
 
 
-@pytest.fixture
-def lib():
-    loaded = native.load()
-    assert loaded is not None, "g++ could not build the native library"
-    return loaded
+def _same_as_jax(topo, root, parents, children, name):
+    """The port's schedule, with use_native either way, equals JAX's from
+    its native builder and from its NumPy one."""
+    jtopo = J.Topology.tree(root, parents, children)
+    for use_native in (True, False):
+        got = P.compile_topology(topo, use_native=use_native)
+        for j_native in (True, False):
+            _same(got, J.compile_topology(jtopo, use_native=j_native),
+                  f"{name} (port {use_native}, jax {j_native})")
 
 
-def test_native_matches_numpy_and_jax_on_all_shapes(lib):
+def test_native_matches_numpy_and_jax_on_all_shapes():
     for name, (root, parents, children) in _shapes():
         topo = P.Topology.tree(root, parents, children)
-        s_native = P.compile_topology(topo, use_native=True)
-        _same(s_native, P.compile_topology(topo, use_native=False), name)
-        _same(s_native, J.compile_topology(
-            J.Topology.tree(root, parents, children)), name)
+        _same_as_jax(topo, root, parents, children, name)
 
 
-def test_native_rejects_invalid_topologies(lib):
+def test_native_rejects_invalid_topologies():
     bad = [
         (5, [0], [1]),                      # root out of range
         (0, [0], [0]),                      # self loop
@@ -79,36 +77,9 @@ def test_native_rejects_invalid_topologies(lib):
                 P.compile_topology(topo, use_native=use_native)
 
 
-def test_large_random_trees_agree(lib):
+def test_large_random_trees_agree():
     rng = np.random.default_rng(0)
     for _ in range(5):
         root, parents, children = _random_tree(rng, 200)
         topo = P.Topology.tree(root, parents, children)
-        s_n = P.compile_topology(topo, use_native=True)
-        _same(s_n, P.compile_topology(topo, use_native=False), "random")
-        _same(s_n, J.compile_topology(
-            J.Topology.tree(root, parents, children)), "random")
-
-
-def test_fallbacks_take_the_numpy_builder(lib, monkeypatch, tmp_path):
-    """SOC_DISABLE_NATIVE, and no compiler to build with, both leave
-    compile_topology to the NumPy builder, with the same schedule (each
-    read when the process first loads the library, as in JAX)."""
-    topo = P.Topology.tree(*_random_tree(np.random.default_rng(1), 40))
-    want = P.compile_topology(topo, use_native=False)
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_tried", False)
-    monkeypatch.setenv("SOC_DISABLE_NATIVE", "1")
-    assert native.load() is None
-    _same(P.compile_topology(topo), want, "disabled")
-    monkeypatch.delenv("SOC_DISABLE_NATIVE")
-
-    def no_compiler(*args, **kwargs):
-        raise FileNotFoundError("g++")
-
-    monkeypatch.setattr(native, "library_path",
-                        lambda: str(tmp_path / "x" / "libsoc_topology.so"))
-    monkeypatch.setattr(subprocess, "run", no_compiler)
-    assert native.load() is None
-    assert list((tmp_path / "x").iterdir()) == []   # no partial library
-    _same(P.compile_topology(topo), want, "no compiler")
+        _same_as_jax(topo, root, parents, children, "random")

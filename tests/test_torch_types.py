@@ -79,7 +79,8 @@ def test_settings_reject_unported_paths():
         pset.Settings(riccati_backend="pallas")
     with pytest.raises(ValueError):
         pset.Settings(riccati_backend="lapack")
-    # the associative-scan chain backend (ops/lqr.py) is ported
+    # "assoc", the JAX package's associative-scan backend, is accepted and
+    # runs the Riccati kernels (ops/lqr.py::_check_backend)
     assert pset.Settings(riccati_backend="assoc").riccati_backend == "assoc"
     assert pset.RICCATI_BACKENDS == ("scan", "cuda", "assoc")
     # the fused line-search probe (ops/ls_probe.py) and the fused iteration
