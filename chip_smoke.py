@@ -127,9 +127,32 @@ reads the last.  A kernel's bound counts the bytes it reads and writes
    equals the one from the tensors in memory bit for bit.  (e) The
    derivative-check channel on the constrained problem at B=1, float64:
    its four errors < 1e-6.
-11. The kernels line gives the Riccati kernels and the chain probe a
-   record at the shapes of phases 8, 9 and 10 with those paths' launches;
+11. Scenario sharding (BASELINE config 5, bench.py --mode scaling):
+   robust_tree h50 (main_path_inputs), B=4096 cold starts jittered by 0.05
+   with seed 0, float32, the scaling mode's settings (100 convergence-
+   tested iterations, tol 1e-3, float32 floors) with the tree probe on 6
+   candidates a chunk.  (a) solve_batch_sharded over NCCL with a world of
+   1 in this process: controls and statuses bit-identical to solve on the
+   same batch (both in PyTorch's deterministic mode), the statistics equal
+   to the host's reductions, usable on >= 0.99, the tree probe's launches
+   > 0 and equal to solve's.  (b) 4 gloo ranks on the one card (NCCL
+   refuses two ranks on one device), each a process of its own that loads
+   the libraries phase 2 built and solves its 1024 rows: statuses equal to
+   (a)'s rows and controls within 1e-2 (1 + |ref|) on >= 0.99 of the
+   scenarios, every rank's statistics identical, the solved count the
+   ranks' sum.  (c) phase 9's joint-θ problem (S=4096) as one coupled
+   solve over the same 4 ranks, 1024 scenarios each: θ, status and
+   iterations bit-identical on every rank, θ and the controls within
+   phase 9's bar against float64 "scan", each rank's Riccati launches
+   solver_launches' count.  ms per solve logged for each, not gated; every
+   process group has a 60 s timeout.
+12. The kernels line gives the Riccati kernels and the chain probe a
+   record at the shapes of phases 8, 9 and 10 with those paths' launches,
+   and every kernel phase 11's launches ((a), and (b) and (c) by rank);
    the last line is the device record.
+
+`python3 chip_smoke.py --shard-worker RANK WORLD STORE OUT_DIR` is one rank
+of phase 11(b)-(c); phase 11 starts them itself.
 """
 
 import concurrent.futures
@@ -830,16 +853,23 @@ def kernel_device_ms(calls, prefix, want, reps=5, tries=5):
     `reps` rounds of `calls`, keyed by kernel name after `prefix`: each
     kernel's device time over the launches the profiler recorded.  `want`
     maps each wanted kernel's launch counter (the port's) to the start of
-    its name; a warm-up round's counters give the launches a round makes.
+    its name, in the order of `calls` (one wanted kernel a call); a
+    warm-up round's counters give the launches a round makes.
     The profiler lost device records at a session's edges (the first one
     or two of a session without a warm-up step; one of 20 in sessions
     with one): so each session traces one more round first and discards
     it (the profiler schedule's warm-up step), and each traced step
     starts and ends with a spin kernel of ~1 ms that no count reads.  A
     session whose records of a wanted kernel count other than `reps`
-    times the round's launches is profiled again, up to `tries`
-    sessions, and with none that counts them all it raises.  Every
-    session's readings are logged."""
+    times the round's launches is profiled again, up to `tries` sessions.
+    Late in a run whole sessions record no device activity at all, the
+    spins' included (on an H100 the first session of each of phases
+    8-10, and every session of phase 8's probe in some runs): with no
+    session that counts every launch, each call's device time comes from
+    CUDA events around `reps` calls queued behind a spin kernel, so that
+    the host's issue gaps do not count (`events_device_ms`: the call's
+    every launch, the wanted kernel's in practice).  Every session's
+    readings are logged, with its count of all device records."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     before = read_counts()
@@ -862,8 +892,10 @@ def kernel_device_ms(calls, prefix, want, reps=5, tries=5):
                 torch.cuda._sleep(2_000_000)
                 torch.cuda.synchronize()
                 prof.step()
-        out, count = {}, {}
+        out, count, records = {}, {}, 0
         for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                records += e.count
             if (e.device_type == torch.autograd.DeviceType.CUDA
                     and e.key.startswith(prefix)):
                 name = e.key[len(prefix):].split("<")[0]
@@ -873,12 +905,32 @@ def kernel_device_ms(calls, prefix, want, reps=5, tries=5):
                 for name in launched}
         log(f"device time: profiler session {attempt + 1} of {tries}: "
             + ", ".join(f"{k} {v:.4f} ms x {count[k]}" for k, v in out.items())
-            + f"; launched {launched}")
+            + f"; launched {launched}; {records} device records in all")
         if seen == launched:
             return out
-    raise AssertionError(f"device time: the profiler counted {seen} "
-                         f"launches of {launched} in each of {tries} "
-                         "sessions")
+    out = {name: events_device_ms(fn, reps) / max(1, launched[name] // reps)
+           for fn, name in zip(calls, launched)}
+    log(f"device time: no profiler session counted {launched}; by CUDA "
+        "events behind a spin kernel instead: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def events_device_ms(fn, reps):
+    """Device ms of one call of `fn`: CUDA events around `reps` calls that
+    the host queues while a ~20 ms spin kernel keeps the stream busy, so
+    that the calls run back to back on the device."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # each fused kernel's name in the profiler and in ptxas's log (the factor:
@@ -1059,13 +1111,15 @@ def mpc_settings(backend, fused_probe=True, model="cartpole", fused=False):
                         fused_probe=fused_probe))
 
 
-def main_path_inputs(device, batch=BATCH, model="cartpole", dtype=None):
+def main_path_inputs(device, batch=BATCH, model="cartpole", dtype=None,
+                     jitter=0.1):
     """A path's model and MPC start state: cartpole h50, chain16 h50 or
     robust_tree h50 (bench.py:146-150: 2 shared edges, 4 branches of 12) in
     float32 (or `dtype`) on `device`; plant states jittered from the model's
-    start with seed 0 in float32 (bench.py:923-926); warm start the constant
-    trajectory at each state with zero duals.  Returns (model, state) as
-    `mpc_call` takes them."""
+    start by `jitter` standard normals with seed 0 in float32
+    (bench.py:923-926; bench.py --mode scaling jitters by 0.05); warm start
+    the constant trajectory at each state with zero duals.  Returns (model,
+    state) as `mpc_call` takes them."""
     import torch
     from sip_optimal_control_tpu_torch import Primal, YVec
     from sip_optimal_control_tpu_torch.models import (cartpole_swingup,
@@ -1088,7 +1142,7 @@ def main_path_inputs(device, batch=BATCH, model="cartpole", dtype=None):
     n, m = dims.max_state_dim, dims.max_control_dim
     rng = np.random.default_rng(0)
     x0s = np.tile(x0.cpu().numpy(), (batch, 1))
-    x0s += 0.1 * rng.standard_normal((batch, n)).astype(np.float32)
+    x0s += jitter * rng.standard_normal((batch, n)).astype(np.float32)
     x = torch.as_tensor(x0s.astype(np.float32), device=device).to(dtype)
     zeros = dict(dtype=dtype, device=device)
     wv = Primal(x=x[:, None].expand(batch, N, n).contiguous(),
@@ -1673,16 +1727,17 @@ def joint_settings(backend):
                     reg_floor=1e-5, prox_reg=1e-5, riccati_backend=backend)
 
 
-def joint_call(model, x0s, backend):
+def joint_call(model, x0s, backend, mesh=None):
+    """The coupled solve of `x0s` (this rank's rows on `mesh`)."""
     from sip_optimal_control_tpu_torch import solve_joint_theta
-    return solve_joint_theta(*model[:3], x0s, joint_settings(backend),
+    return solve_joint_theta(*model[:3], x0s, joint_settings(backend), mesh,
                              *model[3:])
 
 
 def run_joint_theta(device, smi):
     """Phase 9: the coupled joint-θ solve (bench.py --mode joint-theta) at
     S=BATCH.  Returns (records {kernel: record at the path's shape},
-    launches)."""
+    launches, (the float32 and float64 "scan" solves))."""
     import torch
     label = "joint_theta"
     model, x0s = joint_inputs(device)
@@ -1746,7 +1801,7 @@ def run_joint_theta(device, smi):
         "coupled_scenarios_per_s": BATCH / best, "solve_ms": 1e3 * best,
         "trips": trips, "kernel_device_ms_per_solve": busy,
         "theta": float(res.vars.theta[0, 0]), "max_err_vs_scan": err}}))
-    return records, launches
+    return records, launches, (scan32, scan64)
 
 
 # ---------------------------------------------------------------------------
@@ -2074,6 +2129,310 @@ def check_var_extras(device, constrained):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: scenario sharding over processes (BASELINE config 5)
+# ---------------------------------------------------------------------------
+
+# bench.py --mode scaling (bench.py:288-290, :304-305): cold solves of
+# robust_tree h50 (main_path_inputs) from its start jittered by 0.05 with
+# seed 0, the tree probe on 6 candidates a chunk; (b) and (c) in RANKS
+# gloo processes on the one card, each process group with a timeout (a
+# collective that waits longer raises)
+SHARD = dict(ranks=4, jitter=0.05, group_timeout_s=60, worker_timeout_s=420)
+
+
+def shard_settings():
+    """bench.py --mode scaling's cold settings (bench.py:288-290) with
+    the tree probe kernel (chunk 6)."""
+    from sip_optimal_control_tpu_torch import Settings
+    from sip_optimal_control_tpu_torch.solver.settings import \
+        LineSearchSettings
+    return Settings(max_iterations=100, tol=1e-3, mu_min=1e-5,
+                    reg_floor=1e-5, prox_reg=1e-5,
+                    line_search=LineSearchSettings(fused_probe=True,
+                                                   chunk=CHUNK))
+
+
+def shard_inputs(device):
+    """The robust_tree model of the paths and the scaling mode's global
+    batch of B=BATCH starts."""
+    model, (x0s, _, _) = main_path_inputs(device, BATCH, "robust_tree",
+                                          jitter=SHARD["jitter"])
+    return model, x0s
+
+
+def sharded_call(model, x0s, mesh):
+    """solve_batch_sharded of this rank's rows `x0s` on `mesh`."""
+    from sip_optimal_control_tpu_torch import solve_batch_sharded
+    return solve_batch_sharded(*model[1:4], x0s, shard_settings(), mesh,
+                               *model[4:])
+
+
+def events_ms(fn):
+    """(fn(), its CUDA-event ms)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _group(backend, store, rank, world, device=None):
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SHARD["group_timeout_s"]),
+        device_id=device)
+
+
+def run_sharded_one(device, smi):
+    """Phase 11(a): solve_batch_sharded over NCCL with a world of 1 in this
+    process, against solve on the same batch: controls and statuses bit
+    for bit, the statistics the host's reductions of that result, usable
+    on >= QUALITY_USABLE, the tree probe's launches those of solve.  Both
+    solves run in PyTorch's deterministic mode, which adds a tree's
+    children into their parent in a fixed order (index_add's CUDA atomics
+    otherwise add them in any order).  Returns (the plain solve's result,
+    launches of the sharded call)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from sip_optimal_control_tpu_torch import (build_problem, scenario_mesh,
+                                               shard_scenarios, solve)
+    from sip_optimal_control_tpu_torch.mpc import usable_solutions
+    from sip_optimal_control_tpu_torch.ops import cuda_build
+    label = "sharded robust_tree (a), NCCL world 1"
+    model, x0s = shard_inputs(device)
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        _group("nccl", os.path.join(tmp, "store"), 0, 1, device)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mesh = scenario_mesh(device=device)
+            local = shard_scenarios(x0s, mesh)
+            # the stage programs traced once, outside the timed calls
+            build_problem(*model[1:4], local, *model[4:])
+            reset_counts()
+            res, plain_ms = events_ms(lambda: solve(
+                build_problem(*model[1:4], local, *model[4:]),
+                shard_settings()))
+            plain_launches = read_counts()
+            reset_counts()
+            (u, status, stats), ms = events_ms(
+                lambda: sharded_call(model, local, mesh))
+            launches = read_counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dist.destroy_process_group()
+    same = torch.equal(u, res.vars.u) and torch.equal(status, res.status)
+    host = (int((res.status == 0).sum()), float(res.kkt_error.max()),
+            float(res.iterations.float().mean()))
+    got = (int(stats.total_solved), float(stats.max_kkt_error),
+           float(stats.mean_iterations))
+    use = float(usable_solutions(res).float().mean())
+    solved = float((res.status == 0).float().mean())
+    log(f"path [{label}] ({smi}): B={BATCH}, {int(res.iterations.max())} "
+        f"trips (mean {host[2]:.3f}); controls and statuses bit-identical "
+        f"to solve {same}; stats {got} against the host's {host}; usable "
+        f"{use:.4f} (bar {QUALITY_USABLE}), solved_frac {solved:.4f}; "
+        f"{ms:.1f} ms per solve sharded, {plain_ms:.1f} ms solve (CUDA "
+        f"events, deterministic mode); launches {json.dumps(launches)}, "
+        f"solve's {json.dumps(plain_launches)}")
+    if not same:
+        raise AssertionError(f"{label}: differs from solve")
+    if got != host:
+        raise AssertionError(f"{label}: stats {got} != host {host}")
+    if use < QUALITY_USABLE:
+        raise AssertionError(f"{label}: usable {use} < {QUALITY_USABLE}")
+    if not (launches["ls_probe_tree"] > 0 and launches == plain_launches):
+        raise AssertionError(f"{label}: launches {launches} against "
+                             f"solve's {plain_launches}")
+    return res, launches
+
+
+def shard_worker(rank, world, store, out_dir, device="cuda:0"):
+    """Phase 11(b)-(c), one rank: gloo on `device` (every rank on the one
+    card).
+    (b) this rank's rows of phase 11's batch through solve_batch_sharded;
+    (c) its rows of phase 9's joint-θ batch as one coupled solve over the
+    ranks, after a warm-up call.  Each with the counts set to 0 just
+    before it and read just after; saves the results for the parent."""
+    import torch
+    import torch.distributed as dist
+    from sip_optimal_control_tpu_torch import (build_problem, scenario_mesh,
+                                               shard_scenarios)
+    from sip_optimal_control_tpu_torch.ops import ls_probe
+    from sip_optimal_control_tpu_torch.ops import riccati_cuda as rc
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _group("gloo", store, rank, world)
+    try:
+        mesh = scenario_mesh(device=device)
+        model, x0s = shard_inputs(device)
+        local = shard_scenarios(x0s, mesh)
+        prob = build_problem(*model[1:4], local, *model[4:])
+        # the libraries phase 2 built: loaded, never built here
+        for name, built in (("ls_probe_tree",
+                             ls_probe.build_library(*prob.fused_ls[:2])),
+                            ("riccati", rc.build_library())):
+            if built[1] > 0:
+                raise AssertionError(f"rank {rank}: built {name}")
+        reset_counts()
+        (u, status, stats), ms_b = events_ms(
+            lambda: sharded_call(model, local, mesh))
+        launches_b = read_counts()
+
+        jmodel, jx0s = joint_inputs(device)
+        jlocal = shard_scenarios(jx0s, mesh)
+        joint_call(jmodel, jlocal, "cuda", mesh)
+        reset_counts()
+        res, ms_c = events_ms(lambda: joint_call(jmodel, jlocal, "cuda",
+                                                 mesh))
+        launches_c = read_counts()
+    finally:
+        dist.destroy_process_group()
+    torch.save({"b": dict(u=u.cpu(), status=status.cpu(),
+                          stats=[t.cpu() for t in stats], ms=ms_b,
+                          launches=launches_b),
+                "c": dict(theta=res.vars.theta.cpu(), u=res.vars.u.cpu(),
+                          status=res.status.cpu(),
+                          it=res.iterations.cpu(), ms=ms_c,
+                          launches=launches_c)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _run_shard_workers(out_dir):
+    """Starts the RANKS worker processes of phase 11(b)-(c) and waits for
+    them; any failure or timeout raises, and every process is stopped.
+    Returns each rank's saved results."""
+    import torch
+    world = SHARD["ranks"]
+    store = os.path.join(out_dir, "store")
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            logs.append(os.path.join(out_dir, f"rank{rank}.log"))
+            with open(logs[-1], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--shard-worker", str(rank), str(world), store,
+                     out_dir], stdout=fh, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + SHARD["worker_timeout_s"]
+        for rank, proc in enumerate(procs):
+            try:
+                code = proc.wait(timeout=max(1.0,
+                                             deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            if code != 0:
+                with open(logs[rank]) as fh:
+                    tail = fh.read()[-4000:]
+                raise AssertionError(f"phase 11 rank {rank}: exit {code}\n"
+                                     f"{tail}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    for path in logs:
+        with open(path) as fh:
+            text = fh.read().strip()
+        if text:
+            log(f"[{os.path.basename(path)}] {text[-2000:]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def run_sharded_ranks(device, smi, ref_a, joint_refs):
+    """Phase 11(b)-(c) in SHARD["ranks"] gloo processes on cuda:0.  (b):
+    statuses equal to (a)'s rows on >= SCAN_AGREEMENT of the scenarios and
+    the controls within QUAD's iter_tol (1 + |ref|) on those, every rank's
+    statistics identical, the solved count the ranks' sum.  (c): θ, status
+    and iterations bit-identical on every rank, θ and the controls within
+    phase 9's bar against float64 "scan", each rank's Riccati launches
+    solver_launches' count.  Returns each rank's launches of (b) and
+    (c)."""
+    import tempfile
+    import torch
+    from sip_optimal_control_tpu_torch.ops import cuda_build
+    world = SHARD["ranks"]
+    os.makedirs(cuda_build.BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_ROOT) as tmp:
+        ranks = _run_shard_workers(tmp)
+
+    label = f"sharded robust_tree (b), {world} gloo ranks on one card"
+    b = [r["b"] for r in ranks]
+    status = torch.cat([r["status"] for r in b])
+    u = torch.cat([r["u"] for r in b])
+    ref_status, ref_u = ref_a.status.cpu(), ref_a.vars.u.cpu()
+    same = status == ref_status
+    close = ((u - ref_u).abs() <= QUAD["iter_tol"] * (1 + ref_u.abs())) \
+        .flatten(1).all(-1)
+    agree = float((same & close).float().mean())
+    stats_same = all(torch.equal(x, y) for r in b[1:]
+                     for x, y in zip(r["stats"], b[0]["stats"]))
+    solved = int((status == 0).sum())
+    total = int(b[0]["stats"][0])
+    log(f"path [{label}] ({smi}): B={BATCH}, {BATCH // world} per rank; "
+        f"statuses equal to (a)'s and controls within {QUAD['iter_tol']} "
+        f"(1 + |ref|) on {agree:.4f} (bar {SCAN_AGREEMENT}); stats "
+        f"identical on every rank {stats_same}: total_solved {total} "
+        f"(ranks' SOLVED {solved}), max_kkt_error "
+        f"{float(b[0]['stats'][1]):.3e}, mean_iterations "
+        f"{float(b[0]['stats'][2]):.3f}; ms per solve by rank (CUDA "
+        f"events) {json.dumps([round(r['ms'], 1) for r in b])}; "
+        f"ls_probe_tree launches by rank "
+        f"{json.dumps([r['launches']['ls_probe_tree'] for r in b])}")
+    if agree < SCAN_AGREEMENT or not stats_same or total != solved:
+        raise AssertionError(f"{label}: agreement {agree}, stats identical "
+                             f"{stats_same}, total {total} vs {solved}")
+    for rank, r in enumerate(b):
+        want = {"ls_probe_tree": r["launches"]["ls_probe_tree"]}
+        if want["ls_probe_tree"] == 0:
+            raise AssertionError(f"{label}: rank {rank} ran no tree probe")
+        check_launches(f"{label} rank {rank}", r["launches"], want)
+
+    label = f"joint_theta (c), {world} gloo ranks on one card"
+    c = [r["c"] for r in ranks]
+    ident = all(torch.equal(r[k], c[0][k][:1].expand_as(r[k]))
+                for r in c for k in ("theta", "status", "it"))
+    theta = torch.cat([r["theta"] for r in c])
+    ju = torch.cat([r["u"] for r in c])
+    scan32, scan64 = joint_refs
+    trips = int(c[0]["it"][0])
+    log(f"path [{label}] ({smi}): S={BATCH}, {BATCH // world} per rank; "
+        f"theta {float(theta[0, 0]):.7f}, status "
+        f"{int(c[0]['status'][0])}, {trips} trips, bit-identical on every "
+        f"rank {ident}; SOLVED on "
+        f"{float(torch.cat([r['status'] for r in c]).eq(0).float().mean()):.4f}; "
+        f"ms per solve by rank (CUDA events) "
+        f"{json.dumps([round(r['ms'], 1) for r in c])}")
+    if not ident:
+        raise AssertionError(f"{label}: theta, status or iterations differ "
+                             "across ranks")
+    err, detail = compare(label, "theta and controls", (theta, ju),
+                          (scan32.vars.theta.cpu(), scan32.vars.u.cpu()),
+                          SOLVE_TOL, slice(None),
+                          (scan64.vars.theta.cpu(), scan64.vars.u.cpu()))
+    log(f"kernels vs scan [{label}]: max|cuda - scan| {err:.3e}{detail}")
+    want = solver_launches(joint_settings("cuda"), trips,
+                           scan32.vars.theta.shape[-1])
+    for rank, r in enumerate(c):
+        check_launches(f"{label} rank {rank}", r["launches"], want)
+    log(json.dumps({"sharded": {
+        "b_ms_per_solve": [r["ms"] for r in b],
+        "b_agreement": agree, "b_total_solved": total,
+        "c_ms_per_solve": [r["ms"] for r in c], "c_trips": trips,
+        "c_theta": float(theta[0, 0]), "c_max_err_vs_scan": err}}))
+    return [r["launches"] for r in b], [r["launches"] for r in c]
+
+
+# ---------------------------------------------------------------------------
 
 # the phase of each path whose Riccati kernel records join the kernels line
 PATH_PHASES = {"quadrotor": "8", "joint_theta": "9", "padded_lqr": "10(a)",
@@ -2177,10 +2536,12 @@ def main():
     # phases 8 and 9: the counts set to 0 just before each path's measured
     # run and read just after
     path_records = {}
-    for label, run in (("quadrotor", run_quadrotor),
-                       ("joint_theta", run_joint_theta)):
-        path_records[label], launches[label] = run(device, smi)
-        phase_done(f"path {label}")
+    path_records["quadrotor"], launches["quadrotor"] = run_quadrotor(device,
+                                                                     smi)
+    phase_done("path quadrotor")
+    path_records["joint_theta"], launches["joint_theta"], joint_refs = \
+        run_joint_theta(device, smi)
+    phase_done("path joint_theta")
 
     # phase 10: variable dimensions and general constraints, each run with
     # the counts set to 0 just before it and read just after
@@ -2194,6 +2555,14 @@ def main():
         phase_done(f"path {label}")
     check_var_extras(device, results["constrained"])
     phase_done("checkpoint, derivative check")
+
+    # phase 11: scenario sharding; each sub-phase with the counts set to 0
+    # just before it and read just after (by each rank, in its process)
+    ref_a, launches_a = run_sharded_one(device, smi)
+    phase_done("sharded (a)")
+    launches_b, launches_c = run_sharded_ranks(device, smi, ref_a,
+                                               joint_refs)
+    phase_done("sharded (b), (c)")
 
     rows = []
     for kname in ("riccati_factor", "riccati_factor_gram",
@@ -2220,6 +2589,14 @@ def main():
                                   launches=launches[label][kname],
                                   path=f"{label} (phase "
                                   f"{PATH_PHASES[label]})")
+        # phase 11's launches: (a) this process, (b) and (c) by rank
+        rec["phase_11"] = {
+            "path": "(a) sharded robust_tree, NCCL world 1; (b) the same "
+                    f"over {SHARD['ranks']} gloo ranks; (c) joint theta "
+                    f"over {SHARD['ranks']} gloo ranks",
+            "a": launches_a[kname],
+            "b": [counts[kname] for counts in launches_b],
+            "c": [counts[kname] for counts in launches_c]}
         rows.append(rec)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2229,4 +2606,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        # one rank of phase 11(b)-(c), started by _run_shard_workers
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        shard_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+        sys.exit(0)
     sys.exit(main())

@@ -19,9 +19,10 @@ Schur-eliminates θ against the stagewise system (reference:
 helpers.cpp:372-407): p stagewise solves of the θ columns, one per
 column and each over the whole batch, then a p x p Cholesky.  Every tensor
 leads with the scenario batch axis; masks and index sets are shared by all
-scenarios.  With ``coupled`` the batch's scenarios share one θ: the Schur
-complement and the θ right-hand side are summed over the batch and the
-p x p system is factored and solved once.
+scenarios.  With ``theta_sum`` the batch's scenarios share one θ: the
+Schur complement and the θ right-hand side are summed over the batch (and
+over the ranks of a scenario mesh) and the p x p system is factored and
+solved once.
 Edges gather their parent and child nodes through ``types.edge_nodes``
 (slices on a chain, index tensors on other trees) and scatter back to the
 parents with ``types.add_at_nodes``, which sums over the several edges
@@ -31,7 +32,7 @@ that leave one node of a tree.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -254,17 +255,20 @@ def _mask_sym(Qm, mask):
 def kkt_factor(model: StageModelData, regs: Regularizations,
                masks: ConstraintMasks, sched: TopologySchedule,
                backend: str = "scan",
-               coupled: bool = False) -> KKTFactorization:
+               theta_sum: Optional[Callable] = None) -> KKTFactorization:
     """Condense + LQR-factor (+ θ Schur).  Reference:
     CallbackProvider::factor (helpers.cpp:242-408).  ``backend`` selects
     the chain Riccati implementation (see ops.lqr.lqr_factor); trees
     ignore it.
 
-    ``coupled``: the batch's scenarios share ONE θ (JAX's ``axis_names``).
-    Each scenario's θ quantities are contributions to the joint system:
-    S_θ = sum over the batch of (sum d2L/dθ2 + diag(r1_θ) - J_θ^T K^-1 J_θ)
-    is factored once and the factor broadcast to every scenario (the
-    caller counts lane-replicated terms such as r1_θ on one scenario)."""
+    ``theta_sum``: the batch's scenarios share ONE θ (JAX's
+    ``axis_names``), and ``theta_sum(t)`` sums ``t`` over them, broadcast
+    back to ``t``'s shape (``ScenarioMesh.sum``: over the batch axis, then
+    over the mesh's ranks; JAX's psum).  Each scenario's θ quantities are
+    contributions to the joint system: S_θ = the sum of (sum d2L/dθ2 +
+    diag(r1_θ) - J_θ^T K^-1 J_θ) is factored once and the factor broadcast
+    to every scenario (the caller counts lane-replicated terms such as r1_θ
+    on one scenario)."""
     like = model.Hxx_node
     parent, child = edge_nodes(sched, like.device)
     dtype = like.dtype
@@ -333,9 +337,9 @@ def kkt_factor(model: StageModelData, regs: Regularizations,
         for j in range(p)])
     s_theta = (model.Hthth_node.sum(1) + model.Hthth_edge.sum(1)
                + torch.diag_embed(regs.r1_th) - _theta_dot(cols, k_inv_j))
-    if coupled:
+    if theta_sum is not None:
         # one joint p x p system, factored once for every scenario
-        s_chol, s_ok = cholesky_with_ok(s_theta.sum(0))
+        s_chol, s_ok = cholesky_with_ok(theta_sum(s_theta)[0])
         s_chol = s_chol.expand(s_theta.shape)
         s_ok = s_ok.expand(status.shape)
     else:
@@ -444,21 +448,23 @@ def _solve_stagewise(fact: KKTFactorization, model: StageModelData,
 
 def kkt_solve(fact: KKTFactorization, model: StageModelData, b: KKTVector,
               sched: TopologySchedule, backend: str = "scan",
-              coupled: bool = False) -> KKTVector:
+              theta_sum: Optional[Callable] = None) -> KKTVector:
     """Full KKT solve incl. θ back-substitution (reference:
     CallbackProvider::solve, helpers.cpp:896-951).
 
-    ``coupled`` (one θ shared by the batch): ``b.theta`` holds each
-    scenario's contribution to the joint θ right-hand side; the reduced
-    right-hand side is summed over the batch, solved once, and the same dθ
-    is back-substituted into every scenario's stagewise solution."""
+    ``theta_sum`` (one θ shared by the batch, as in ``kkt_factor``):
+    ``b.theta`` holds each scenario's contribution to the joint θ
+    right-hand side; the reduced right-hand side is summed by
+    ``theta_sum``, solved once, and the same dθ is back-substituted into
+    every scenario's stagewise solution."""
     sol = _solve_stagewise(fact, model, b, sched, backend)
     if b.theta.shape[-1] == 0:
         return sol
     cols = _theta_jacobian_columns(model, sched)
     theta_rhs = b.theta - _theta_vec_dot(cols, sol)
-    if coupled:
-        dtheta = cho_solve(fact.theta_schur_chol[0], theta_rhs.sum(0))
+    if theta_sum is not None:
+        dtheta = cho_solve(fact.theta_schur_chol[0],
+                           theta_sum(theta_rhs)[0])
         dtheta = dtheta.expand(theta_rhs.shape)
     else:
         dtheta = cho_solve(fact.theta_schur_chol, theta_rhs)

@@ -1,1 +1,3 @@
-from .sharding import solve_joint_theta
+from .._mesh import ScenarioMesh
+from .sharding import (BatchSolveStats, scenario_mesh, shard_scenarios,
+                       solve_batch_sharded, solve_joint_theta)

@@ -13,7 +13,10 @@ tensor, and the per-scenario control flow of a vmapped
 NLP whose scenarios share θ: every scalar coupling (merit, residual norms,
 step limits, θ stationarity) is a sum, max or min over the batch axis,
 broadcast back to every scenario, and the θ Schur system is summed over
-the batch and solved once (ops/kkt.py).
+the batch and solved once (ops/kkt.py).  ``solve(coupled=mesh)`` with a
+``ScenarioMesh`` makes every rank's rows of the batch that one NLP: the
+same reductions run over the local rows and then over the mesh's process
+group.
 
 Method: slack-based primal-dual barrier with proximal (dual) regularization
 (cf. PAPERS.md: "Dual-Regularized Riccati Recursions for Interior-Point
@@ -44,6 +47,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._mesh import ScenarioMesh, local_mesh
 from .._tree import lane_view, tree_leaves, tree_map, tree_select
 from ..ops.kkt import (ConstraintMasks, KKTVector, Regularizations,
                        StageModelData, apply_C, apply_CT, apply_G, apply_GT,
@@ -312,7 +316,7 @@ def solve(problem: OCProblem, settings: Settings,
           init_z: Optional[ZVec] = None,
           init_zl: Optional[Primal] = None,
           init_zu: Optional[Primal] = None,
-          coupled: bool = False) -> SolveResult:
+          coupled=False) -> SolveResult:
     """Run the interior-point solve for every scenario of the batch.
 
     Warm starting: pass `init_vars` / `init_y` (and optionally the
@@ -322,10 +326,15 @@ def solve(problem: OCProblem, settings: Settings,
     at mu_init complementarity (z >= mu/s); warm bound duals are projected
     into the IPOPT-style kappa_sigma box [mu/(kappa d), kappa mu/d].
 
-    ``coupled``: all B scenarios form one joint problem sharing θ (JAX
-    sip.py:325-442); the result's θ is identical on every scenario and its
-    status, iterations and KKT error are the joint problem's.  Requires
-    unbounded θ (θ bounds would add lane-replicated barrier terms)."""
+    ``coupled``: True makes all B scenarios one joint problem sharing θ
+    (JAX sip.py:325-442); the result's θ is identical on every scenario and
+    its status, iterations and KKT error are the joint problem's.  A
+    ``ScenarioMesh`` (``parallel.scenario_mesh``) makes the batch this
+    rank's rows of one joint problem over every rank of the mesh (JAX's
+    ``coupled_axes`` over a mesh axis): every rank must call ``solve``
+    alike, and each gets its own rows with the joint θ, status and
+    iterations.  Requires unbounded θ (θ bounds would add lane-replicated
+    barrier terms)."""
     if settings.fixed_iterations and settings.max_iterations < 1:
         raise ValueError(
             "fixed_iterations requires max_iterations >= 1 (a 0-trip loop "
@@ -339,20 +348,16 @@ def solve(problem: OCProblem, settings: Settings,
                        init_zu, coupled)
 
 
-def _batch_reductions(coupled: bool):
-    """(gsum, gmax, gmin) over the batch axis ``dim``, broadcast back to
-    every scenario: JAX's psum / pmax / pmin over the coupled axes.  The
-    identity when the scenarios are independent."""
-    if not coupled:
+def _batch_reductions(mesh: Optional[ScenarioMesh]):
+    """(gsum, gmax, gmin) over the batch axis ``dim`` and the mesh's ranks,
+    broadcast back to every scenario: JAX's psum / pmax / pmin over the
+    coupled axes.  The identity when the scenarios are independent
+    (``mesh`` None)."""
+    if mesh is None:
         def ident(v, dim=0):
             return v
         return ident, ident, ident
-
-    def fold(op):
-        def red(v, dim=0):
-            return op(v, dim, keepdim=True).expand(v.shape)
-        return red
-    return (fold(torch.sum), fold(torch.amax), fold(torch.amin))
+    return mesh.sum, mesh.max, mesh.min
 
 
 def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
@@ -387,9 +392,14 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
 
     # ----- coupled (shared-θ) reductions (JAX sip.py:401-442) --------------
     # every scenario is one part of a single joint NLP: scalar couplings
-    # reduce over the batch, and lane-replicated θ terms (its prox
-    # regularization) count once, on scenario 0 (th_once, JAX's rep0)
-    gsum, gmax, gmin = _batch_reductions(coupled)
+    # reduce over the batch (and the mesh's ranks), and lane-replicated θ
+    # terms (its prox regularization) count once, on scenario 0 of rank 0
+    # (th_once, JAX's rep0)
+    mesh = (coupled if isinstance(coupled, ScenarioMesh)
+            else local_mesh(device) if coupled else None)
+    coupled = mesh is not None
+    gsum, gmax, gmin = _batch_reductions(mesh)
+    theta_sum = mesh.sum if coupled else None
     th_once = 1.0
     if coupled:
         if bool(has_lb.theta.any() | has_ub.theta.any()):
@@ -397,7 +407,8 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                 "coupled solves require unbounded theta (theta box bounds "
                 "would add lane-replicated barrier terms)")
         th_once = torch.zeros(batch, 1, dtype=dtype, device=device)
-        th_once[0] = 1.0
+        if mesh.rank == 0:
+            th_once[0] = 1.0
 
     # Fused line-search probe (ops/ls_probe.py, a chain's or a tree's):
     # engaged when the problem is eligible (build_problem sets fused_ls)
@@ -634,7 +645,8 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         def gfactor(regs_):
             # coupled: the joint factorization fails when any scenario's
             # does (they share one Newton system)
-            f_ = kkt_factor(ev.stage, regs_, masks, sched, backend, coupled)
+            f_ = kkt_factor(ev.stage, regs_, masks, sched, backend,
+                            theta_sum)
             return f_._replace(status=gmax(f_.status)) if coupled else f_
 
         regs_f = regs
@@ -653,13 +665,13 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
             fact = tree_select(failed, fact_n, fact)
         factor_failed = fact.status != 0
 
-        sol = kkt_solve(fact, ev.stage, b, sched, backend, coupled)
+        sol = kkt_solve(fact, ev.stage, b, sched, backend, theta_sum)
         for _ in range(settings.iterative_refinement_steps):
             # coupled: apply_K's θ row is this scenario's contribution
             # (r1_th counted on scenario 0), reduced again by kkt_solve
             resid = b - apply_K(ev.stage, regs_f, sol, sched)
             sol = sol + kkt_solve(fact, ev.stage, resid, sched, backend,
-                                  coupled)
+                                  theta_sum)
         dv, dy, dz = _primal_of(sol), _y_of(sol), _z_of(sol)
         ds = tree_map(lambda ri, gdx, m: torch.where(m, -ri - gdx, 0.0),
                       r_ineq, _z_of(apply_G(ev.stage, sol, sched)), zmask)
@@ -908,8 +920,15 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
             if settings.debug_check_finite:
                 _report_nonfinite("trip", state)
     else:
-        # Convergence-tested mode: one host check per trip
-        while bool((state.status == int(SIPStatus.RUNNING)).any()):
+        # Convergence-tested mode: one host check per trip.  A coupled
+        # solve over a mesh takes the group's decision, so that every rank
+        # runs the same trips (each holds collectives); its statuses are
+        # the joint problem's and agree across ranks anyway
+        def running(st):
+            flags = st.status == int(SIPStatus.RUNNING)
+            return mesh.any(flags) if coupled else bool(flags.any())
+
+        while running(state):
             state = trip(state, True)
             if settings.debug_check_finite:
                 _report_nonfinite("trip", state)
