@@ -25,6 +25,7 @@ from .model import ModelSpec, box_bounds, build_problem, fused_probe_model
 from .solver.settings import Settings
 from .solver.sip import Primal, SolveResult, YVec, solve
 from .types import Dimensions, Topology
+from .utils.profiling import span
 
 # seed of the fixed plant disturbance (bench.py::build_mpc_scan)
 DISTURBANCE_SEED = 12345
@@ -175,23 +176,24 @@ def mpc_steps(spec: ModelSpec, dims: Dimensions, topology: Topology,
     x, wv, wy = x0, warm_vars, warm_y
     statuses, iterations, kkt_errors, mus = [], [], [], []
     for k in range(steps):
-        problem = build_problem(spec, dims, topology, initial_state=x,
-                                lower=lower, upper=upper,
-                                hessian_mode=hessian_mode,
-                                fused_model=fused_model)
-        res = solve(problem, settings, init_vars=wv, init_y=wy)
-        usable = usable_solutions(res)
-        u0 = torch.where(lane_view(usable, res.vars.u[:, 0]),
-                         res.vars.u[:, 0], 0.0)
-        x_next = plant(x, u0, theta0, edge0)
-        sh_vars, sh_y = _shift_warm_start(res.vars, res.y, topology)
-        reset_vars = Primal(x=x_next[:, None].expand(-1, N, -1),
-                            u=torch.zeros_like(sh_vars.u),
-                            theta=sh_vars.theta * 0)
-        wv = tree_select(usable, sh_vars, reset_vars)
-        wy = tree_map(lambda a: torch.where(lane_view(usable, a), a, 0.0),
-                      sh_y)
-        x = x_next + disturbance[k]
+        with span("sip.mpc_step", step=k):
+            problem = build_problem(spec, dims, topology, initial_state=x,
+                                    lower=lower, upper=upper,
+                                    hessian_mode=hessian_mode,
+                                    fused_model=fused_model)
+            res = solve(problem, settings, init_vars=wv, init_y=wy)
+            usable = usable_solutions(res)
+            u0 = torch.where(lane_view(usable, res.vars.u[:, 0]),
+                             res.vars.u[:, 0], 0.0)
+            x_next = plant(x, u0, theta0, edge0)
+            sh_vars, sh_y = _shift_warm_start(res.vars, res.y, topology)
+            reset_vars = Primal(x=x_next[:, None].expand(-1, N, -1),
+                                u=torch.zeros_like(sh_vars.u),
+                                theta=sh_vars.theta * 0)
+            wv = tree_select(usable, sh_vars, reset_vars)
+            wy = tree_map(lambda a: torch.where(lane_view(usable, a), a,
+                                                0.0), sh_y)
+            x = x_next + disturbance[k]
         statuses.append(res.status)
         iterations.append(res.iterations)
         kkt_errors.append(res.kkt_error)

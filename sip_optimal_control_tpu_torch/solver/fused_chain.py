@@ -34,6 +34,7 @@ import torch
 from .._tree import lane_view, tree_leaves, tree_map, tree_select
 from ..ops.fused_iter import make_fused_eval, make_fused_factor_solve
 from ..ops.ls_probe import make_fused_probe
+from ..utils.profiling import count, leaves, span, tracing
 from .settings import Settings, SIPStatus
 from .sip import (_EPS, OCProblem, Primal, SolveResult, YVec, ZVec, _lmin,
                   _lsum, _tdot, _tsum)
@@ -100,10 +101,10 @@ def _eligible(problem: OCProblem, settings: Settings,
 
 def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
                 init_y=None, init_z=None, init_zl=None,
-                init_zu=None) -> SolveResult:
+                init_zu=None, solve_id: int = 0) -> SolveResult:
     """Fused-iteration solve; call through ``solver.sip.solve``, which
     applies the eligibility gate.  ``init_z`` is unused: the class has no
-    inequality rows."""
+    inequality rows.  ``solve_id`` numbers the solve in its spans."""
     dims = problem.dims
     N, E = dims.num_nodes, dims.num_edges
     ispec, ibounds, x0 = problem.fused_iter
@@ -224,7 +225,11 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         return out
 
     # ----- one IPM iteration ----------------------------------------------
-    def body(st: _FState) -> _FState:
+    # the leaf spans and counters of sip.py's body
+    def body(st: _FState, leaf) -> _FState:
+        leaf("sip.eval")
+        counting = tracing()
+        live = (st.status == int(SIPStatus.RUNNING)) if counting else None
         vars, y, zl, zu, mu, ev = st.vars, st.y, st.zl, st.zu, st.mu, st.ev
         shrink = kkt_err(ev, mu) <= settings.kappa_eps * mu
         mu = torch.where(
@@ -233,6 +238,8 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
                                       mu ** settings.theta_mu),
                         min=settings.mu_min),
             mu)
+
+        leaf("sip.kkt")
 
         def lv(v, like):
             return lane_view(v, like)
@@ -265,6 +272,9 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         r1c, out = r1, try_factor(r1)
         for _ in range(settings.max_factor_retries):
             failed = out[3] != 0
+            if counting:
+                count("factor_retry_lanes", batch)
+                count("factor_retry_needed", failed & live)
             rs = settings.retry_scale
             r1n = tree_map(lambda a: a * rs + rs * settings.prox_reg, r1c)
             out_n = try_factor(r1n)
@@ -286,6 +296,7 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
                                                   torch.zeros_like(a), a), t)
         dv, dy, dzl, dzu = scrub(dv), scrub(dy), scrub(dzl), scrub(dzu)
 
+        leaf("sip.line_search")
         tau = torch.clamp(1.0 - mu, min=settings.tau_min)
         alpha_p = torch.minimum(min_steps(dl, dv, has_lb, tau),
                                 min_steps(du, dv, has_ub, tau, -1.0))
@@ -354,6 +365,10 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         alpha = alpha_p + 0.0 * phi0
         accepted = phi0 != phi0
         for j in range(-(-ls.max_steps // chunk)):
+            if counting:
+                count("ls_round_lanes", batch)
+                # live and not yet accepted
+                count("ls_round_needed", live > accepted)
             alpha_n, ok = chunked(alpha, j * chunk, acceptable)
             alpha = torch.where(accepted, alpha, alpha_n)
             accepted = accepted | ok
@@ -373,6 +388,7 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         else:
             filt_th_n, filt_ph_n = st.filt_th, st.filt_ph
 
+        leaf("sip.update")
         alpha = torch.where(accepted, alpha, torch.zeros_like(alpha))
         step_rejected = factor_failed | ~accepted
         reg_boost_n = torch.where(
@@ -390,9 +406,11 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         zu_n = tree_map(lambda a, d_, h: torch.where(
             h, a + lv(alpha_d, a) * d_, 0.0), zu, dzu, has_ub)
 
+        leaf("sip.eval")
         it_n = st.it + 1
         ev_n = eval_at(vars_n, y_n, zl_n, zu_n)
         e_new = kkt_err(ev_n, 0.0)
+        leaf("sip.update")
         blew_up = ~torch.isfinite(e_new) | (e_new > settings.diverged_kkt)
         gave_up = factor_failed & (st.reg_boost >= settings.reg_boost_max)
         stalled = consec_rej_n >= settings.max_consecutive_rejections
@@ -413,18 +431,27 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
             consec_rej=consec_rej_n, ev=ev_n, filt_th=filt_th_n,
             filt_ph=filt_ph_n)
 
-    def trip(st: _FState) -> _FState:
+    def trip(st: _FState, k: int) -> _FState:
         """One iteration for every scenario; scenarios that left RUNNING
         keep their state, the carried vector evaluation included (JAX
         fused_chain.py:461-466)."""
-        return tree_select(st.status == int(SIPStatus.RUNNING), body(st), st)
+        with span("sip.trip", solve=solve_id, trip=k), \
+                leaves(solve=solve_id, trip=k) as leaf:
+            new = body(st, leaf)
+            return tree_select(st.status == int(SIPStatus.RUNNING), new, st)
+
+    def running(st):
+        with span("sip.converged", solve=solve_id):
+            return bool((st.status == int(SIPStatus.RUNNING)).any())
 
     if settings.fixed_iterations:
-        for _ in range(settings.max_iterations):
-            state = trip(state)
+        for k in range(settings.max_iterations):
+            state = trip(state, k)
     else:
-        while bool((state.status == int(SIPStatus.RUNNING)).any()):
-            state = trip(state)
+        k = 0
+        while running(state):
+            state = trip(state, k)
+            k += 1
 
     status = torch.where(state.status == int(SIPStatus.RUNNING),
                          int(SIPStatus.MAX_ITERATIONS),

@@ -339,13 +339,18 @@ def solve(problem: OCProblem, settings: Settings,
         raise ValueError(
             "fixed_iterations requires max_iterations >= 1 (a 0-trip loop "
             "would diverge from the convergence-tested semantics)")
-    if settings.fused_iteration:
-        from .fused_chain import _eligible, solve_fused
-        if _eligible(problem, settings, coupled):
-            return solve_fused(problem, settings, init_vars, init_y, init_z,
-                               init_zl, init_zu)
-    return _solve_impl(problem, settings, init_vars, init_y, init_z, init_zl,
-                       init_zu, coupled)
+    # imported here, as fused_chain below: utils imports this module
+    from ..utils.profiling import next_solve_id, span
+    solve_id = next_solve_id()
+    with span("sip.solve", solve=solve_id):
+        if settings.fused_iteration:
+            from .fused_chain import _eligible, solve_fused
+            if _eligible(problem, settings, coupled):
+                return solve_fused(problem, settings, init_vars, init_y,
+                                   init_z, init_zl, init_zu,
+                                   solve_id=solve_id)
+        return _solve_impl(problem, settings, init_vars, init_y, init_z,
+                           init_zl, init_zu, coupled, solve_id=solve_id)
 
 
 def _batch_reductions(mesh: Optional[ScenarioMesh]):
@@ -361,7 +366,9 @@ def _batch_reductions(mesh: Optional[ScenarioMesh]):
 
 
 def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
-                init_z, init_zl, init_zu, coupled=False) -> SolveResult:
+                init_z, init_zl, init_zu, coupled=False,
+                solve_id: int = 0) -> SolveResult:
+    from ..utils.profiling import count, leaves, span, tracing
     dims = problem.dims
     masks = problem.masks
     sched = problem.sched
@@ -579,7 +586,13 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         return v + lane_view(alpha, v) * d
 
     # ----- one IPM iteration ----------------------------------------------
-    def body(st: _IPMState) -> _IPMState:
+    # ``leaf`` opens each of the trip's leaf spans in turn
+    # (utils/profiling.py); while tracing, the RUNNING lanes ``live`` feed
+    # the counters
+    def body(st: _IPMState, leaf) -> _IPMState:
+        leaf("sip.eval")
+        counting = tracing()
+        live = (st.status == int(SIPStatus.RUNNING)) if counting else None
         vars, s, y, z, zl, zu, mu = (st.vars, st.s, st.y, st.z, st.zl,
                                      st.zu, st.mu)
         ev = st.ev
@@ -594,6 +607,8 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                                       mu ** settings.theta_mu),
                         min=settings.mu_min),
             mu)
+
+        leaf("sip.kkt")
 
         def lv(v, like):
             return lane_view(v, like)
@@ -653,6 +668,9 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         fact = gfactor(regs_f)
         for _ in range(settings.max_factor_retries):
             failed = fact.status != 0
+            if counting:
+                count("factor_retry_lanes", batch)
+                count("factor_retry_needed", failed & live)
             rs = settings.retry_scale
             regs_n = dataclasses.replace(
                 regs_f,
@@ -689,6 +707,7 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         dv, dy, dz, ds, dzl, dzu = (scrub(dv), scrub(dy), scrub(dz),
                                     scrub(ds), scrub(dzl), scrub(dzu))
 
+        leaf("sip.line_search")
         # fraction-to-boundary step limits
         tau = torch.clamp(1.0 - mu, min=settings.tau_min)
 
@@ -809,6 +828,10 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         alpha = alpha_p + 0.0 * phi0
         accepted = phi0 != phi0
         for j in range(-(-ls.max_steps // chunk)):
+            if counting:
+                count("ls_round_lanes", batch)
+                # live and not yet accepted
+                count("ls_round_needed", live > accepted)
             alpha_n, ok = chunked(alpha, j * chunk, acceptable)
             alpha = torch.where(accepted, alpha, alpha_n)
             accepted = accepted | ok
@@ -830,6 +853,7 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         else:
             filt_th_n, filt_ph_n = st.filt_th, st.filt_ph
 
+        leaf("sip.update")
         # Min-alpha safeguard: an exhausted line search REJECTS the step
         # (alpha = 0) and inflates the carried regularization boost
         alpha = torch.where(accepted, alpha, torch.zeros_like(alpha))
@@ -874,12 +898,14 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
                   f"slope={slope.tolist()} theta0={theta0.tolist()} "
                   f"nu={nu.tolist()}")
 
+        leaf("sip.eval")
         it_n = st.it + 1
         # evaluate the model at the ACCEPTED iterate and classify it
         ev_n = problem.eval_model(vars_n, y_n, z_n)
         _, _, err_n_fn = kkt_residuals(vars_n, s_n, y_n, z_n, zl_n, zu_n,
                                        ev_n)
         e_new = err_n_fn(0.0)
+        leaf("sip.update")
         # non-finite KKT error counts as divergence
         blew_up = ~torch.isfinite(e_new) | (e_new > settings.diverged_kkt)
         # FACTORIZATION_FAILURE is terminal only once the boost saturated
@@ -902,21 +928,23 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
             reg_boost=reg_boost_n, consec_rej=consec_rej_n, ev=ev_n,
             filt_th=filt_th_n, filt_ph=filt_ph_n)
 
-    def trip(st: _IPMState, freeze_ev: bool) -> _IPMState:
+    def trip(st: _IPMState, freeze_ev: bool, k: int) -> _IPMState:
         """One iteration for every scenario; scenarios that left RUNNING
         keep their state (the vmapped while_loop's select)."""
-        new = body(st)
-        keep = st.status == int(SIPStatus.RUNNING)
-        if freeze_ev:
-            return tree_select(keep, new, st)
-        out = tree_select(keep, new._replace(ev=st.ev), st)
-        return out._replace(ev=new.ev)
+        with span("sip.trip", solve=solve_id, trip=k), \
+                leaves(solve=solve_id, trip=k) as leaf:
+            new = body(st, leaf)
+            keep = st.status == int(SIPStatus.RUNNING)
+            if freeze_ev:
+                return tree_select(keep, new, st)
+            out = tree_select(keep, new._replace(ev=st.ev), st)
+            return out._replace(ev=new.ev)
 
     if settings.fixed_iterations:
         # Real-time-iteration mode: exactly max_iterations trips, no host
         # synchronisation
-        for _ in range(settings.max_iterations):
-            state = trip(state, settings.rti_freeze_ev)
+        for k in range(settings.max_iterations):
+            state = trip(state, settings.rti_freeze_ev, k)
             if settings.debug_check_finite:
                 _report_nonfinite("trip", state)
     else:
@@ -925,11 +953,14 @@ def _solve_impl(problem: OCProblem, settings: Settings, init_vars, init_y,
         # runs the same trips (each holds collectives); its statuses are
         # the joint problem's and agree across ranks anyway
         def running(st):
-            flags = st.status == int(SIPStatus.RUNNING)
-            return mesh.any(flags) if coupled else bool(flags.any())
+            with span("sip.converged", solve=solve_id):
+                flags = st.status == int(SIPStatus.RUNNING)
+                return mesh.any(flags) if coupled else bool(flags.any())
 
+        k = 0
         while running(state):
-            state = trip(state, True)
+            state = trip(state, True, k)
+            k += 1
             if settings.debug_check_finite:
                 _report_nonfinite("trip", state)
 
