@@ -34,7 +34,11 @@ Phases; any failure raises and the script exits non-zero:
    time per launch.  The tree probe the same way on robust_tree (horizon
    50: 51 nodes, 50 edges) at B=4096 in both layouts and at a ragged
    B=1000 (transposed), with its launch configuration, ptxas line and
-   device time per launch.  The four
+   device time per launch.  The fused trip's line-search prologue
+   (csrc/ls_prologue.cu) on both chain paths' models at B=4096 and at the
+   benchmark fleet's B=262,144: step limits bit-equal to the twin's, sums
+   within 1e-5 of their terms' magnitudes; its ptxas line and device time
+   per launch beside its bound in bytes.  The four
    fused kernels on cartpole, quadrotor (exact) and chain16 at B=4096,
    T=50 against their twins (FACTOR_TOL, SOLVE_TOL, statuses identical,
    the Newton step at the solver's delta under compare's rule), with the
@@ -724,6 +728,175 @@ def check_probe_tree(device):
     return rec
 
 
+# the prologue's batches: the main path's and the benchmark fleet's
+PROLOGUE_BATCHES = (BATCH, 262_144)
+# its sums, relative to the sum of their terms' magnitudes (the twin adds
+# them in PyTorch's order, the kernel over a warp's lanes)
+PROLOGUE_TOL = 1e-5
+
+
+def prologue_inputs(model, batch, seed, device):
+    """The fused trip's line-search prologue's arguments at a path's model
+    (its bounds, the fused path's tau_min), drawn on the card: iterates
+    inside the bounds, steps of a quarter of the box's width (2 where a
+    bound is missing) that cross some, positive multipliers on the bounded
+    entries and 0 elsewhere, as the solver keeps them, mu 10^U(-5, -1)."""
+    import torch
+    from sip_optimal_control_tpu_torch import Primal
+    (_, _, _, _, lower, upper), _ = main_path_inputs(device, 1, model)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def leaf(lo, hi):
+        shape = (batch,) + tuple(lo.shape)
+        fl, fu = torch.isfinite(lo), torch.isfinite(hi)
+        lo_, hi_ = torch.where(fl, lo, 0.0), torch.where(fu, hi, 0.0)
+        width = torch.where(fl & fu, hi_ - lo_, 2.0)
+        room = torch.where(fl & fu, width * (0.05 + 0.9 * torch.rand(
+            shape, generator=gen, device=device)), randn(shape).exp())
+        v = torch.where(fl, lo_ + room,
+                        torch.where(fu, hi_ - room, 2.0 * randn(shape)))
+        z = [torch.where(h, 0.1 * randn(shape).exp(), 0.0) for h in (fl, fu)]
+        dz = [torch.where(h, 0.1 * randn(shape), 0.0) for h in (fl, fu)]
+        return v, 0.25 * width * randn(shape), randn(shape), z, dz
+
+    vx, dvx, gx, zx, dzx = leaf(lower.x, upper.x)
+    vu, dvu, gu, zu, dzu = leaf(lower.u, upper.u)
+    no_theta = torch.zeros(batch, 0, device=device)
+
+    def primal(x, u):
+        return Primal(x=x, u=u, theta=no_theta)
+
+    mu = 10.0 ** (-5.0 + 4.0 * torch.rand(batch, generator=gen,
+                                          device=device))
+    return (primal(vx, vu), primal(dvx, dvu), primal(zx[0], zu[0]),
+            primal(zx[1], zu[1]), primal(dzx[0], dzu[0]),
+            primal(dzx[1], dzu[1]), gx, gu,
+            0.1 * randn(tuple(vx.shape)), 10.0 * randn((batch,)), mu, lower,
+            upper, mpc_settings("cuda", model=model, fused=True).tau_min)
+
+
+def prologue_bytes(args):
+    """Bytes the prologue must move: per scenario dv, g (and the states'
+    residuals) of every entry, the iterate of every entry with a finite
+    bound, zl and dzl with a finite lower, zu and dzu with a finite upper
+    bound; f and mu in, five floats out."""
+    import torch
+    vars, lower, upper = args[0], args[11], args[12]
+    per = 2 * 4 + 5 * 4
+    for rows, lo, hi, fixed in ((vars.x, lower.x, upper.x, 3),
+                                (vars.u, lower.u, upper.u, 2)):
+        fl, fu = torch.isfinite(lo), torch.isfinite(hi)
+        per += 4 * int((fixed + (fl | fu).int() + 2 * fl.int()
+                        + 2 * fu.int()).sum())
+    return vars.x.shape[0] * per
+
+
+def prologue_magnitudes(args):
+    """The sum of the magnitudes of the terms of the prologue's sums
+    (theta0, phi_bar0, d_phi), each [B], in float64."""
+    import torch
+    vars, dv, gx, gu, cdyn, f, mu, lower, upper = (
+        args[0], args[1], args[6], args[7], args[8], args[9], args[10],
+        args[11], args[12])
+
+    def total(t):
+        return t.double().abs().flatten(1).sum(-1)
+
+    dot = total(gx.double() * dv.x) + total(gu.double() * dv.u)
+    logs = inv = torch.zeros_like(dot)
+    for v, d_, lo, hi in ((vars.x, dv.x, lower.x, upper.x),
+                          (vars.u, dv.u, lower.u, upper.u)):
+        for dist, h in ((v.double() - lo, lo.isfinite()),
+                        (hi - v.double(), hi.isfinite())):
+            dist = dist.where(h, 1.0)
+            logs = logs + total(dist.clamp(min=0).log().where(h, 0.0))
+            inv = inv + total((d_ / dist).where(h, 0.0))
+    mu = mu.double()
+    return total(cdyn), f.double().abs() + mu * logs, dot + mu * inv
+
+
+def prologue_match(label, got, want, args):
+    """The step limits bit-equal; the sums within PROLOGUE_TOL of the sum
+    of their terms' magnitudes.  Returns the largest such relative
+    difference of the sums."""
+    import torch
+    from sip_optimal_control_tpu_torch.ops import ls_probe
+    names = ls_probe.PROLOGUE_OUTPUTS
+    for name, a, b in zip(names[:2], got[:2], want[:2]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs on "
+                                 f"{int((a != b).sum())} scenarios")
+    err = 0.0
+    for name, a, b, mag in zip(names[2:], got[2:], want[2:],
+                               prologue_magnitudes(args)):
+        if not bool(torch.isfinite(b).all() and torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: {name} not finite")
+        rel = float(((a.double() - b).abs() / mag).max())
+        if rel > PROLOGUE_TOL:
+            raise AssertionError(f"{label}: {name} off by {rel:.3e} of its "
+                                 f"terms' magnitudes (bar {PROLOGUE_TOL})")
+        err = max(err, rel)
+    return err
+
+
+def check_prologue(device):
+    """The line-search prologue kernel (csrc/ls_prologue.cu) against its
+    twin at both chain paths' models, at the main path's batch and at the
+    benchmark fleet's; logs its ptxas line.  Returns the timing record at
+    cartpole (the fleet's under "fleet")."""
+    import torch
+    from sip_optimal_control_tpu_torch.ops import ls_probe
+
+    fn, twin = ls_probe.prologue_kernel, ls_probe.ls_prologue_reference
+    out = None
+    for seed, model in enumerate(CHAIN_PATHS):
+        for batch in PROLOGUE_BATCHES:
+            args = prologue_inputs(model, batch, 30 + seed, device)
+            got, want = fn(*args), twin(*args)
+            torch.cuda.synchronize()
+            err = prologue_match(f"prologue[{model} B={batch}]", got, want,
+                                 args)
+            crossing = float((want[0] < 1).float().mean())
+            log(f"kernels[ls_prologue {model}] B={batch}: step limits "
+                f"bit-equal to the twin's, sums within {err:.3e} of their "
+                f"terms' magnitudes ({crossing:.4f} of the scenarios' steps "
+                f"cross a bound)")
+            if model != "cartpole":
+                continue
+            rec = {"name": "ls_prologue", "route": "cuda",
+                   "source": "sip_optimal_control_tpu_torch/csrc/"
+                             "ls_prologue.cu",
+                   "replaces": "none: XLA fuses the block "
+                               "(solver/fused_chain.py:295-327)",
+                   "max_rel_err": err, "batch": batch,
+                   "ms": time_ms(lambda: fn(*args), reps=50),
+                   "plain_ms": time_ms(lambda: twin(*args), reps=5,
+                                       warmup=1),
+                   "bound_ms": 1e3 * prologue_bytes(args) / PEAK_BYTES,
+                   "bound_by": "bytes", "library_ms": None}
+            dev = kernel_device_ms([lambda a=args: fn(*a)], "ls_probe::",
+                                   {"ls_prologue": "ls_prologue_kernel"},
+                                   reps=20)
+            rec["device_ms"] = next(v for k, v in dev.items()
+                                    if k.startswith("ls_prologue_kernel"))
+            log(f"time[ls_prologue {model}] B={batch}: kernel wrapper "
+                f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms per "
+                f"launch, plain twin {rec['plain_ms']:.4f} ms, bound "
+                f"{rec['bound_ms']:.4f} ms (bytes)")
+            if out is None:
+                out = rec
+            else:
+                out["fleet"] = rec
+            del args, got, want
+    lib = ls_probe.build_prologue()[0]
+    log(f"launch[ls_prologue]: {32 * 8} threads a block, one warp a "
+        f"scenario; ptxas {ptxas_line(lib, 'ls_prologue_kernel')}")
+    return out
+
+
 def fused_flops(name, spec, bounds):
     """Floating-point operations per scenario of each fused kernel: the
     generated stage programs (one operation per scalar instruction, a
@@ -1322,7 +1495,7 @@ PATH_KERNELS = {"cartpole": ("riccati_factor", "riccati_solve_bwd",
                 "chain16": ("riccati_factor_gram", "riccati_solve_bwd",
                             "riccati_solve_fwd", "ls_probe"),
                 "fused": ("fused_factor", "fused_solve_bwd",
-                          "fused_solve_fwd", "ls_probe"),
+                          "fused_solve_fwd", "ls_probe", "ls_prologue"),
                 # the tree LQR is plain PyTorch: no Riccati kernel
                 "robust_tree": ("ls_probe_tree",)}
 
@@ -2462,6 +2635,7 @@ def build_all(device):
         _, ispec, rows = fused_model(model, device)
         jobs[f"fused_iter[{model}]"] = (
             lambda s=ispec, b=rows: fused_iter.build_library(s, b))
+    jobs["ls_prologue"] = ls_probe.build_prologue
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         futures = {name: pool.submit(fn) for name, fn in jobs.items()}
@@ -2511,6 +2685,7 @@ def main():
     kernels = check_riccati(device)
     kernels["ls_probe"] = check_probe(device)
     kernels["ls_probe_tree"] = check_probe_tree(device)
+    kernels["ls_prologue"] = check_prologue(device)
     kernels.update(check_fused(device))
     phase_done("kernels")
 
@@ -2567,10 +2742,11 @@ def main():
     rows = []
     for kname in ("riccati_factor", "riccati_factor_gram",
                   "riccati_solve_bwd", "riccati_solve_fwd", "ls_probe",
-                  "ls_probe_tree", "fused_factor", "fused_solve_bwd",
-                  "fused_solve_fwd", "fused_eval"):
+                  "ls_probe_tree", "ls_prologue", "fused_factor",
+                  "fused_solve_bwd", "fused_solve_fwd", "fused_eval"):
         rec = kernels[kname]
-        fused = " fused" if kname.startswith("fused") else ""
+        fused = (" fused" if kname.startswith("fused")
+                 or kname == "ls_prologue" else "")
         first = {"riccati_factor_gram": "chain16",
                  "ls_probe_tree": "robust_tree"}.get(kname, "cartpole")
         rec["launches"] = launches[first + fused][kname]

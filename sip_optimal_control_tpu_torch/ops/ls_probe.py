@@ -32,6 +32,10 @@ over the whole chain or tree.
   ``cuda_source_tree``,
   ``probe_tree_kernel``
   ``make_fused_probe``         CPU tensors -> twin, CUDA float32 -> kernel
+  ``ls_prologue_reference``,   the fused trip's line-search prologue: its
+  ``prologue_kernel``,         twin (the solver's PyTorch block), the
+  ``ls_prologue``              wrapper of ``csrc/ls_prologue.cu`` and the
+                               dispatch
   ===========================  =============================================
 
 Scope (checked by ``model.py::fused_probe_model``): uniform dims, no theta,
@@ -40,6 +44,11 @@ kernel as literals).  Every function takes the iterate and direction as
 x, dx [B, N, n], u, du [B, E, m] (a chain: N = T+1, E = T), the root's
 initial state x0 [B, n] and the candidates alphas [B, chunk], and returns
 (f, theta, logb), each [B, chunk].
+
+The prologue (``ls_prologue``) is what the fused trip's line search needs
+at the iterate before it probes: the step limits, the barrier merit, its
+slope and the infeasibility, per scenario.  Its kernel does not depend on
+the model: one library serves every model.
 """
 
 from __future__ import annotations
@@ -53,13 +62,15 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from .._tree import lane_view, tree_leaves, tree_map
 from . import cuda_build
 from .stage_codegen import ScalarProgram, build_program, emit_cuda, evaluate
 
 _EPS = 1e-30
 
-# Launches of the probe kernels; each wrapper adds one where it launches.
-launch_counts = {"ls_probe": 0, "ls_probe_tree": 0}
+# Launches of the probe and prologue kernels; each wrapper adds one where
+# it launches.
+launch_counts = {"ls_probe": 0, "ls_probe_tree": 0, "ls_prologue": 0}
 
 
 def reset_launch_counts() -> None:
@@ -706,6 +717,177 @@ def make_fused_probe(spec, bounds):
             entry = _entry(spec, bounds)
         return kernel(spec, bounds, x, dx, u, du, x0, alphas, entry)
     return probe
+
+
+# ---------------------------------------------------------------------------
+# the fused trip's line-search prologue
+# ---------------------------------------------------------------------------
+
+PROLOGUE_OUTPUTS = ("alpha_p", "alpha_d", "theta0", "phi_bar0", "d_phi")
+
+
+def ls_prologue_reference(vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn, f, mu,
+                          lower, upper, tau_min):
+    """The plain twin: the fused trip's PyTorch block at the iterate
+    ``vars`` (Primal) with direction ``dv``, bound multipliers ``zl``,
+    ``zu`` and their directions ``dzl``, ``dzu`` (Primal), the objective
+    gradients ``gx`` [B, N, n], ``gu`` [B, E, m], the equality residuals
+    ``cdyn`` [B, N, n], the objective ``f`` and barrier parameter ``mu``
+    [B] and the bounds shared by every scenario: the fraction-to-the-
+    boundary step limits ``alpha_p`` and ``alpha_d``, the infeasibility
+    ``theta0``, the barrier merit ``phi_bar0`` and its slope ``d_phi``,
+    each [B] (PROLOGUE_OUTPUTS)."""
+    # imported here: solver/sip.py imports this module
+    from ..solver.sip import _EPS, Primal, _lmin, _lsum, _tdot, _tsum
+    has_lb = tree_map(torch.isfinite, lower)
+    has_ub = tree_map(torch.isfinite, upper)
+    dl = tree_map(lambda v, lb, h: torch.where(h, v - lb, 1.0), vars, lower,
+                  has_lb)
+    du = tree_map(lambda v, ub, h: torch.where(h, ub - v, 1.0), vars, upper,
+                  has_ub)
+
+    def log_barrier():
+        def logs(dists, has):
+            return _tsum(tree_map(lambda d, h: torch.where(
+                h, torch.log(torch.clamp(d, min=_EPS)), 0.0), dists, has))
+        return logs(dl, has_lb) + logs(du, has_ub)
+
+    def max_step(val, dval, mask, tau):
+        bad = mask & (dval < 0)
+        a = torch.where(bad, -lane_view(tau, val) * val
+                        / torch.where(bad, dval, -1.0), 1.0)
+        return torch.clamp(_lmin(a), max=1.0)
+
+    def min_steps(vals, dvals, msks, tau, sign=1.0):
+        out = torch.full(f.shape, 1.0, dtype=f.dtype, device=f.device)
+        for v_, d_, m_ in zip(tree_leaves(vals), tree_leaves(dvals),
+                              tree_leaves(msks)):
+            out = torch.minimum(out, max_step(v_, sign * d_, m_, tau))
+        return out
+
+    tau = torch.clamp(1.0 - mu, min=tau_min)
+    alpha_p = torch.minimum(min_steps(dl, dv, has_lb, tau),
+                            min_steps(du, dv, has_ub, tau, -1.0))
+    alpha_d = torch.minimum(min_steps(zl, dzl, has_lb, tau),
+                            min_steps(zu, dzu, has_ub, tau))
+    theta0 = _lsum(cdyn.abs())
+    phi_bar0 = f - mu * log_barrier()
+    d_phi = (_tdot(Primal(x=gx, u=gu, theta=vars.theta * 0), dv)
+             - mu * _tsum(tree_map(
+                 lambda dx_, d, h: torch.where(h, dx_ / d, 0.0), dv, dl,
+                 has_lb))
+             + mu * _tsum(tree_map(
+                 lambda dx_, d, h: torch.where(h, dx_ / d, 0.0), dv, du,
+                 has_ub)))
+    return alpha_p, alpha_d, theta0, phi_bar0, d_phi
+
+
+def build_prologue():
+    """Compile the prologue's library (one for every model) unless built.
+    Returns (path, seconds spent compiling)."""
+    return cuda_build.build_file("ls_prologue", "ls_prologue.cu")
+
+
+@functools.lru_cache(maxsize=None)
+def _load_prologue(path: str):
+    """The entry point of the prologue library built at ``path``."""
+    fn = ctypes.CDLL(path).ls_prologue_f32
+    ptr, f32 = ctypes.c_void_p, ctypes.c_float
+    fn.argtypes = ([ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+                   + [ptr] * 22 + [f32, f32, ptr, ptr])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _prologue_entry():
+    """The prologue kernel's entry point, its library built at first use."""
+    return _load_prologue(build_prologue()[0])
+
+
+# each leaf's operands, in the kernel's entry point's order
+_PROLOGUE_OPERANDS = ("v", "dv", "g", "c", "zl", "zu", "dzl", "dzu", "lower",
+                      "upper")
+
+
+def _prologue_leaves(vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn, lower,
+                     upper):
+    """The kernel's operands of each leaf (``_PROLOGUE_OPERANDS``; the
+    controls have no residuals c: None)."""
+    return ((vars.x, dv.x, gx, cdyn, zl.x, zu.x, dzl.x, dzu.x, lower.x,
+             upper.x),
+            (vars.u, dv.u, gu, None, zl.u, zu.u, dzl.u, dzu.u, lower.u,
+             upper.u))
+
+
+def _check_prologue(leaves, f, mu, thetas) -> None:
+    """[B, N, n] / [B, E, m] operands with [N, n] / [E, m] bounds, f and mu
+    [B], no theta; one CUDA device, float32, contiguous."""
+    x, u = leaves[0][0], leaves[1][0]
+    if x.dim() != 3 or u.dim() != 3:
+        raise ValueError("the prologue takes x [B, N, n] and u [B, E, m]")
+    if any(t.numel() for t in thetas):
+        raise ValueError("the prologue kernel takes no theta")
+    B = x.shape[0]
+    named = [("f", f, (B,)), ("mu", mu, (B,))]
+    for leaf, ops in zip("xu", leaves):
+        rows = tuple(ops[0].shape[1:])
+        named += [(f"{leaf}.{name}", t, rows if name in ("lower", "upper")
+                   else (B,) + rows)
+                  for name, t in zip(_PROLOGUE_OPERANDS, ops) if t is not None]
+    for name, t, want in named:
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{want}")
+        if t.device != x.device:
+            raise ValueError(f"{name}: on {t.device}, expected {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the prologue kernel takes float32, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def prologue_kernel(vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn, f, mu, lower,
+                    upper, tau_min):
+    """The prologue kernel's wrapper (``csrc/ls_prologue.cu``): one launch
+    for the whole batch, no synchronisation; the twin's arguments and
+    outputs (views of one [5, B] tensor).  The library is built at the
+    first call, after the inputs are checked."""
+    from ..solver.sip import _EPS
+    leaves = _prologue_leaves(vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn,
+                              lower, upper)
+    _check_prologue(leaves, f, mu, (vars.theta, dv.theta, zl.theta,
+                                    zu.theta, lower.theta))
+    x, u = leaves[0][0], leaves[1][0]
+    B = x.shape[0]
+    out = torch.empty((len(PROLOGUE_OUTPUTS), B), dtype=torch.float32,
+                      device=x.device)
+    fn = _prologue_entry()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(B, x[0].numel(), u[0].numel(),
+                 *[0 if t is None else t.data_ptr() for ops in leaves
+                   for t in ops], f.data_ptr(), mu.data_ptr(),
+                 float(tau_min), _EPS, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ls_prologue launch failed: CUDA error {err}")
+    launch_counts["ls_prologue"] += 1
+    return tuple(out)
+
+
+def ls_prologue(vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn, f, mu, lower,
+                upper, tau_min):
+    """What the fused trip calls: CPU tensors take the plain twin
+    (``ls_prologue_reference``); CUDA tensors launch the kernel or raise
+    (float32, contiguous, no theta)."""
+    args = (vars, dv, zl, zu, dzl, dzu, gx, gu, cdyn, f, mu, lower, upper,
+            tau_min)
+    if f.device.type == "cpu":
+        return ls_prologue_reference(*args)
+    return prologue_kernel(*args)
 
 
 # name -> (source, replaced TPU kernel)

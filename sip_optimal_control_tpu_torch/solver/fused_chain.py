@@ -15,7 +15,9 @@ changes:
      as the three fused kernels (``ops/fused_iter.py``); nothing but the
      Newton direction and the statuses comes back.
   3. The line search probes through the fused probe kernel
-     (``ops/ls_probe.py``), as on the standard path.
+     (``ops/ls_probe.py``), as on the standard path; what it needs at the
+     iterate (step limits, merit, slope, infeasibility) is one more kernel
+     there, ``ls_prologue``.
 
 As in ``solver/sip.py`` every scalar of the JAX loop is a [B] tensor, the
 vmapped per-scenario control flow becomes per-lane masks and selects, and
@@ -31,13 +33,12 @@ from typing import NamedTuple
 
 import torch
 
-from .._tree import lane_view, tree_leaves, tree_map, tree_select
+from .._tree import lane_view, tree_map, tree_select
 from ..ops.fused_iter import make_fused_eval, make_fused_factor_solve
-from ..ops.ls_probe import make_fused_probe
+from ..ops.ls_probe import ls_prologue, make_fused_probe
 from ..utils.profiling import count, leaves, span, tracing
 from .settings import Settings, SIPStatus
-from .sip import (_EPS, OCProblem, Primal, SolveResult, YVec, ZVec, _lmin,
-                  _lsum, _tdot, _tsum)
+from .sip import _EPS, OCProblem, Primal, SolveResult, YVec, ZVec
 
 
 class _VecEval(NamedTuple):
@@ -116,7 +117,8 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
     fused_factor_solve = make_fused_factor_solve(ispec, ibounds)
     fused_probe_fn = make_fused_probe(fspec, fbounds)
 
-    lower, upper = problem.lower, problem.upper
+    lower, upper = (tree_map(torch.Tensor.contiguous, b)
+                    for b in (problem.lower, problem.upper))
     has_lb = tree_map(torch.isfinite, lower)
     has_ub = tree_map(torch.isfinite, upper)
 
@@ -205,25 +207,6 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         filt_ph=torch.full((batch, K_it), math.inf, dtype=dtype,
                            device=device))
 
-    def log_barrier(vars):
-        def logs(dists, has):
-            return _tsum(tree_map(lambda d, h: torch.where(
-                h, torch.log(torch.clamp(d, min=_EPS)), 0.0), dists, has))
-        return logs(dist_l(vars), has_lb) + logs(dist_u(vars), has_ub)
-
-    def max_step(val, dval, mask, tau):
-        bad = mask & (dval < 0)
-        a = torch.where(bad, -lane_view(tau, val) * val
-                        / torch.where(bad, dval, -1.0), 1.0)
-        return torch.clamp(_lmin(a), max=1.0)
-
-    def min_steps(vals, dvals, msks, tau, sign=1.0):
-        out = lanes(1.0)
-        for v_, d_, m_ in zip(tree_leaves(vals), tree_leaves(dvals),
-                              tree_leaves(msks)):
-            out = torch.minimum(out, max_step(v_, sign * d_, m_, tau))
-        return out
-
     # ----- one IPM iteration ----------------------------------------------
     # the leaf spans and counters of sip.py's body
     def body(st: _FState, leaf) -> _FState:
@@ -297,22 +280,14 @@ def solve_fused(problem: OCProblem, settings: Settings, init_vars=None,
         dv, dy, dzl, dzu = scrub(dv), scrub(dy), scrub(dzl), scrub(dzu)
 
         leaf("sip.line_search")
-        tau = torch.clamp(1.0 - mu, min=settings.tau_min)
-        alpha_p = torch.minimum(min_steps(dl, dv, has_lb, tau),
-                                min_steps(du, dv, has_ub, tau, -1.0))
-        alpha_d = torch.minimum(min_steps(zl, dzl, has_lb, tau),
-                                min_steps(zu, dzu, has_ub, tau))
+        # fraction-to-boundary step limits, merit, slope and infeasibility
+        # at the iterate: one kernel on the card (the same scalars as
+        # sip.py)
+        alpha_p, alpha_d, theta0, phi_bar0, d_phi = ls_prologue(
+            vars, dv, zl, zu, dzl, dzu, ev.gx, ev.gu, ev.cdyn, ev.f, mu,
+            lower, upper, settings.tau_min)
 
         # ----- line search (fused probe; the same scalars as sip.py) ------
-        theta0 = _lsum(ev.cdyn.abs())
-        phi_bar0 = ev.f - mu * log_barrier(vars)
-        d_phi = (_tdot(Primal(x=ev.gx, u=ev.gu, theta=vars.theta * 0), dv)
-                 - mu * _tsum(tree_map(
-                     lambda dx_, d, h: torch.where(h, dx_ / d, 0.0), dv, dl,
-                     has_lb))
-                 + mu * _tsum(tree_map(
-                     lambda dx_, d, h: torch.where(h, dx_ / d, 0.0), dv, du,
-                     has_ub)))
         nu = torch.maximum(st.nu, torch.where(
             theta0 > 1e-14, d_phi / ((1.0 - ls.nu_rho)
                                      * torch.clamp(theta0, min=1e-14)),

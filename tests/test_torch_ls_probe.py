@@ -112,7 +112,8 @@ def test_make_fused_probe_routes_by_device():
     for a, b in zip(probe(*args), ls_probe.probe_reference(fspec, fbounds,
                                                            *args)):
         assert torch.equal(a, b)
-    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 0}
+    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 0,
+                                      "ls_prologue": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         probe(*(a.to("meta") for a in args))
     with pytest.raises(TypeError, match="float32"):

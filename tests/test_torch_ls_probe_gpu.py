@@ -54,7 +54,8 @@ def test_kernel_matches_twin_on_card(cuda, name, T, batch):
         ls_probe.reset_launch_counts()
         got = ls_probe.probe_kernel(spec, bounds, *args[:5], alphas_t)
         torch.cuda.synchronize()
-        assert ls_probe.launch_counts == {"ls_probe": 1, "ls_probe_tree": 0}
+        assert ls_probe.launch_counts == {"ls_probe": 1, "ls_probe_tree": 0,
+                                          "ls_prologue": 0}
         probe_match(got, ls_probe.probe_reference(spec, bounds, *args))
         got_c = ls_probe.probe_kernel(spec, bounds, *args)
         assert all(torch.equal(a, b) for a, b in zip(got, got_c))

@@ -269,7 +269,8 @@ def test_kernel_matches_twin(host_probe, name, T, chunk):
     probe_match(got, want)
     got_t = host_probe(name, T, *args[:5], transposed(args[5]))
     assert all(torch.equal(a, b) for a, b in zip(got, got_t))
-    assert ls_probe.launch_counts == {"ls_probe": 2, "ls_probe_tree": 0}
+    assert ls_probe.launch_counts == {"ls_probe": 2, "ls_probe_tree": 0,
+                                      "ls_prologue": 0}
 
 
 @pytest.mark.parametrize("name,T", LIBS)

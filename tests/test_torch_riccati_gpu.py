@@ -171,7 +171,8 @@ def test_probe_kernel_matches_twin(cuda, name):
     ls_probe.reset_launch_counts()
     got = ls_probe.make_fused_probe(fspec, fbounds)(*args)
     torch.cuda.synchronize()
-    assert ls_probe.launch_counts == {"ls_probe": 1, "ls_probe_tree": 0}
+    assert ls_probe.launch_counts == {"ls_probe": 1, "ls_probe_tree": 0,
+                                      "ls_prologue": 0}
     want = ls_probe.probe_reference(fspec, fbounds, *args)
     assert bool(torch.isneginf(want[2][0]).all())
     for a, b in zip(got, want):

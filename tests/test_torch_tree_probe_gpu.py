@@ -79,7 +79,8 @@ def test_tree_probe_kernel_matches_twin(cuda):
     alphas = args[5].t().contiguous().t()
     got = ls_probe.probe_tree_kernel(tspec, tbounds, *args[:5], alphas)
     torch.cuda.synchronize()
-    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 1}
+    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 1,
+                                      "ls_prologue": 0}
     want = ls_probe.probe_reference_tree(tspec, tbounds, *args)
     assert bool(torch.isneginf(want[2][0]).all())
     _assert_match(got, want)
@@ -207,7 +208,8 @@ def test_tree_kernel_cases_on_card(tree_libs, name, batch):
         ls_probe.reset_launch_counts()
         got = ls_probe.probe_tree_kernel(spec, bounds, *args[:5], alphas_t)
         torch.cuda.synchronize()
-        assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 1}
+        assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 1,
+                                          "ls_prologue": 0}
         probe_match(got, ls_probe.probe_reference_tree(spec, bounds, *args))
         got_c = ls_probe.probe_tree_kernel(spec, bounds, *args)
         assert all(torch.equal(a, b) for a, b in zip(got, got_c))

@@ -264,7 +264,8 @@ def test_kernel_matches_twin(host_probe, name, chunk):
     probe_match(got, want)
     got_t = host_probe(name, *args[:5], transposed(args[5]))
     assert all(torch.equal(a, b) for a, b in zip(got, got_t))
-    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 2}
+    assert ls_probe.launch_counts == {"ls_probe": 0, "ls_probe_tree": 2,
+                                      "ls_prologue": 0}
 
 
 @pytest.mark.parametrize("name", list(TREES))
