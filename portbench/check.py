@@ -4,10 +4,11 @@ and the numbers that decide ``correct``.
 The reference (``reference/``) runs each recorded (period, scenario) pair
 again from the inputs the program was given in that period: the plant
 state and the warm start, which the program made from the previous period's
-output (the first warm period's come from the traffic alone).  It computes
-in float64 and shares nothing with the program but those inputs.  Per
-pair, the gap of an output is max |program - reference| / (1 + |reference|)
-over its elements, infinite where either side is not finite.
+output (the first recorded period's from the last settle period's, or from
+the traffic alone where it has none).  It computes in float64 and shares
+nothing with the program but those inputs.  Per pair, the gap of an output
+is max |program - reference| / (1 + |reference|) over its elements,
+infinite where either side is not finite.
 
 * ``off_share``: the share of pairs whose status differs from the
   reference's, or whose largest gap over the next plant state and the next
@@ -18,39 +19,59 @@ over its elements, infinite where either side is not finite.
 
 A run is correct when each number is at most its limit in the
 configuration's ``check``.
+
+The reference is ``reference/<reference_model>.py`` of the configuration:
+its ``build`` makes the plain model, and its ``period``, where it defines
+one, the period; ``reference/mpc.py::period`` (a chain MPC period)
+otherwise.
 """
 
 from __future__ import annotations
 
-import importlib
+import importlib.util
 import math
+import os
 
 NUMBERS = ("off_share", "x_next_gap_p50")
 FIELDS = ("x", "wx", "wu", "wy")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def reference_module(cfg: dict, root: str = ROOT):
+    """``portbench/reference/<reference_model>.py`` under ``root``, loaded
+    inside the reference package, so that its relative imports find
+    reference/sip.py."""
+    name = cfg["reference_model"]
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.reference.{name}",
+        os.path.join(root, "portbench", "reference", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reference_model(cfg: dict, dtype, device):
-    mod = importlib.import_module(
-        f"portbench.reference.{cfg['reference_model']}")
-    return mod.build(cfg["model_args"], dtype, device)[0]
+    return reference_module(cfg).build(cfg["model_args"], dtype, device)[0]
 
 
 def reference_periods(cfg: dict, x, wx, wu, wy, mode: str = "full",
-                      block: int = 8192) -> dict:
+                      block: int = 8192, root: str = ROOT) -> dict:
     """The reference's period for every row of (x, wx, wu, wy), in blocks
     of rows; ``mode`` "full" computes in float64, a control mode in float32
     at that lower precision (reference/sip.py's Arith)."""
     import torch
     from portbench.reference import mpc, sip
     dtype = torch.float64 if mode == "full" else torch.float32
-    model = reference_model(cfg, dtype, x.device)
+    mod = reference_module(cfg, root)
+    period = getattr(mod, "period", mpc.period)
+    model = mod.build(cfg["model_args"], dtype, x.device)[0]
     ar = sip.Arith(mode)
     outs = []
     for i in range(0, x.shape[0], block):
         rows = slice(i, i + block)
-        outs.append(mpc.period(model, cfg["settings"], cfg["hessian_mode"],
-                               *(t[rows].to(dtype) for t in (x, wx, wu, wy)),
-                               ar))
+        outs.append(period(model, cfg["settings"], cfg["hessian_mode"],
+                           *(t[rows].to(dtype) for t in (x, wx, wu, wy)),
+                           ar))
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -74,11 +95,11 @@ def numbers(prog: dict, ref: dict, gap_tol: float) -> dict:
                 0.5, interpolation="lower"))}
 
 
-def judge(cfg: dict, pairs: dict) -> tuple:
+def judge(cfg: dict, pairs: dict, root: str = ROOT) -> tuple:
     """(correct, {number: (value, limit)}, pairs compared) for the
     recorded pairs of a run."""
     ref = reference_periods(cfg, pairs["x"], pairs["wx"], pairs["wu"],
-                            pairs["wy"])
+                            pairs["wy"], root=root)
     prog = dict(x=pairs["out_x"], wx=pairs["out_wx"], wu=pairs["out_wu"],
                 wy=pairs["out_wy"], status=pairs["status"])
     got = numbers(prog, ref, cfg["check"]["gap_tol"])

@@ -4,11 +4,12 @@ program, or of a control in its place, on several seeds in one process.
     python3 portbench/control.py --workload NAME --seeds 11,12,13 \\
         --periods 5 [--mode program|tf32|bf16]
 
-``--mode program`` runs the port as a benchmark run does (warm periods,
-then ``--periods`` periods); a control mode puts the plain reference,
-computed in float32 at that lower precision (reference/sip.py's Arith), in
-the program's place for the whole batch, and the check compares it with
-the float64 reference like the program.  One JSON line per seed.  The
+``--mode program`` runs the port as a benchmark run does (settle and warm
+periods, then ``--periods`` periods); a control mode puts the plain
+reference, computed in float32 at that lower precision (reference/sip.py's
+Arith), in the program's place for the whole batch in every recorded
+period (the program runs the settle periods), and the check compares it
+with the float64 reference like the program.  One JSON line per seed.  The
 benchmark's own runs never run a control.
 """
 
@@ -28,7 +29,19 @@ def control_fleet(mode: str):
     from portbench.reference import mpc, sip
 
     class ControlFleet(fleet.Fleet):
+        in_control = True
+
+        def settle(self):
+            # the program's own periods bring the fleet to where a
+            # benchmark run's warm periods start; the control takes every
+            # recorded period
+            self.in_control = False
+            super().settle()
+            self.in_control = True
+
         def solve_period(self):
+            if not self.in_control:
+                return super().solve_period()
             import torch
             model = check.reference_model(self.cfg, torch.float32,
                                           self.x.device)

@@ -4,8 +4,17 @@ period per call of the port's ``mpc_steps``, back to back.
 Traffic (a ``traffic/<mix>.json`` of kind ``fleet``) fixes the batch, the
 start states (a start state plus ``start_jitter`` standard normals), the
 plant disturbance added after each period (``disturbance`` standard
-normals), the untimed warm periods, the scenarios whose periods the output
-check re-solves and the periods a traced run profiles.
+normals), the untimed settle and warm periods, the scenarios whose periods
+the output check re-solves and the periods a traced run profiles.
+
+The settle periods (``settle_periods``, none where the traffic has no such
+key) run the closed loop through its start-up transient before anything is
+recorded.  A fleet's failures a period fall as its plants settle (the
+cartpole's from ~1,800 a period over its first 50 to a steady ~366 from
+its 300th on), so a window that began at the start would count a share of
+failures that depends on how many periods the program fits into it; and
+its next-state gaps to the reference fall from ~3e-4 over its first 10
+periods to ~1e-6 from its 20th, the regime its check's limits are set in.
 
 The plants and their disturbances are one population, drawn on the card
 from a fixed stream; ``--seed`` orders it (a permutation of the batch) and
@@ -37,9 +46,13 @@ def program_settings(cfg: dict):
 
 
 class Fleet:
-    """One run of a fleet cell on ``device``."""
+    """One run of a fleet cell on ``device``; the fleet is one card's, so
+    ``rank`` and ``ranks`` (run.py's runner arguments) are 0 and 1."""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, device,
+                 rank: int = 0, ranks: int = 1):
+        if ranks != 1:
+            raise ValueError(f"a fleet runs on one card, not {ranks}")
         import torch
         from sip_optimal_control_tpu_torch import Primal, YVec, models
         self.torch = torch
@@ -120,11 +133,18 @@ class Fleet:
             self.torch.cuda.synchronize(self.device)
 
     def warm(self):
-        """The untimed warm periods: every shape the window uses is built,
-        loaded and run once.  They are checked like the window's."""
+        """The untimed periods: the settle periods, unrecorded, then the
+        warm periods, in which every shape the window uses is built, loaded
+        and run once.  The warm periods are checked like the window's."""
+        self.settle()
         for _ in range(self.traffic["warm_periods"]):
             self.period(record=True)
         self.stats.clear()
+
+    def settle(self):
+        """The traffic's settle periods: the closed loop, unrecorded."""
+        for _ in range(self.traffic.get("settle_periods", 0)):
+            self.period(record=False)
 
     def window(self, seconds: float):
         """Back-to-back periods until ``seconds`` have passed; each period's
@@ -179,6 +199,26 @@ class Fleet:
         if on_card:
             self.torch.cuda.empty_cache()
 
+    def work(self):
+        """The work counts of portbench/work.py at this fleet's shapes."""
+        import torch
+        from portbench import check, work
+        ref_model = check.reference_model(self.cfg, torch.float32, "cpu")
+        ops = (work.scalar_ops(ref_model.dynamics, torch.zeros(self.n),
+                               torch.zeros(self.m)),
+               work.scalar_ops(ref_model.node_cost, torch.zeros(self.n),
+                               torch.tensor(1.0)),
+               work.scalar_ops(ref_model.edge_cost, torch.zeros(self.n),
+                               torch.zeros(self.m)))
+        ls = self.cfg["settings"]["line_search"]
+        return work.CellWork(
+            self.T, self.n, self.m, self.batch, max(1, int(ls["chunk"])),
+            self.cfg["hessian_mode"] == "exact",
+            work.finite_count(self.lower.u[0]) + work.finite_count(
+                self.upper.u[0]),
+            work.finite_count(self.lower.x[0]) + work.finite_count(
+                self.upper.x[0]), ops)
+
     def checked_pairs(self):
         """The recorded (period, scenario) pairs, each field stacked:
         inputs x, wx, wu, wy; the program's outputs x_next, wx, wu, wy,
@@ -188,3 +228,6 @@ class Fleet:
                  "out_wy", "status", "kkt", "iterations")
         return {k: torch.cat([r[i] for r in self.records])
                 for i, k in enumerate(names)}
+
+
+Runner = Fleet

@@ -18,7 +18,17 @@ import pytest
 from portbench import run
 
 ROOT = run.ROOT
-SMALL = dict(batch=24, check_scenarios=12, warm_periods=1)
+SMALL = dict(batch=24, check_scenarios=12, settle_periods=1,
+             warm_periods=1)
+# the cartpole's next-state gaps read ~3e-4 over its first 10 periods and
+# ~1e-6 from its 20th on, as in the settled window its limit is set for
+SETTLE = {"cartpole_rti_fleet": 30}
+
+
+def small(workload):
+    """SMALL, with the settle periods that bring ``workload`` to the
+    regime its limits hold in."""
+    return dict(SMALL, settle_periods=SETTLE.get(workload, 1))
 CELLS = ("cartpole_rti_fleet", "quadrotor_mpc_fleet")
 
 
@@ -59,10 +69,10 @@ def test_a_whole_run_loads_no_jax():
     assert not mods & set(run.FORBIDDEN)
 
 
-def _measure(workload, fleet_cls, seconds=0.5, seed=11):
+def _measure(workload, runner_cls, seconds=0.5, seed=11):
     cell, cfg, traffic, metrics = run.load_cell(workload)
-    return run.measure(cell, cfg, dict(traffic, **SMALL), metrics, seed,
-                       seconds, 0, "cpu", fleet_cls=fleet_cls)
+    return run.measure(cell, cfg, dict(traffic, **small(workload)), metrics,
+                       seed, seconds, 0, "cpu", runner_cls=runner_cls)
 
 
 @pytest.mark.parametrize("workload", CELLS)
@@ -70,6 +80,10 @@ def test_sound_run_is_correct(workload):
     res = _measure(workload, None, seed=2 ** 33 + 5)
     assert res["correct"], res["check"]
     assert res["attempted"] % SMALL["batch"] == 0 and res["attempted"]
+    # the warm and window periods are checked, the settle periods are not
+    periods = res["attempted"] // SMALL["batch"] + SMALL["warm_periods"]
+    assert res["check"]["pairs_compared"] == (
+        periods * SMALL["check_scenarios"])
     # the numbers compared come last, beside their limits
     assert list(res)[-1] == "check"
     for k in ("off_share", "x_next_gap_p50"):
@@ -114,8 +128,8 @@ def test_control_is_not_correct(workload):
     program's place."""
     from portbench import control
     cell, cfg, traffic, metrics = run.load_cell(workload)
-    res = run.measure(cell, cfg, dict(traffic, **SMALL), metrics, 7, 0.5, 0,
-                      "cpu", fleet_cls=control.control_fleet(
+    res = run.measure(cell, cfg, dict(traffic, **small(workload)), metrics,
+                      7, 0.5, 0, "cpu", runner_cls=control.control_fleet(
                           cfg["check"]["control"]))
     assert not res["correct"], res["check"]
 

@@ -32,10 +32,13 @@ def test_cell_files_found_by_name(cell):
     conf = {c["name"]: c for c in BENCH["configs"]}[cell["config"]]
     assert cfg["name"] == conf["name"] == cell["config"]
     assert conf["file"] == f"portbench/configs/{cell['config']}.json"
-    assert traffic["kind"] == "fleet"
-    for key in ("batch", "start_state", "start_jitter", "disturbance",
-                "warm_periods", "check_scenarios", "trace_periods"):
-        assert key in traffic
+    # the traffic's kind names the runner module
+    assert NAME.match(traffic["kind"])
+    assert callable(run.runner_class(traffic["kind"]))
+    if traffic["kind"] == "fleet":
+        for key in ("batch", "start_state", "start_jitter", "disturbance",
+                    "warm_periods", "check_scenarios", "trace_periods"):
+            assert key in traffic
     # every cell reports setup_s, another end-to-end metric and a
     # per-layer metric
     e2e = {m["name"] for m in metrics["end_to_end"]}
@@ -91,7 +94,8 @@ def test_names_and_text_fields():
     for c in BENCH["configs"]:
         assert len(c["source"]) <= 200 and not c["reduced"]
     layers = {m["layer"] for m in BENCH["per_layer"]}
-    assert layers <= {"interior-point loop", "trip", "kernels", "device"}
+    assert layers <= {"interior-point loop", "trip", "kernels", "device",
+                      "scenario sharding"}
 
 
 def test_a_new_metric_is_a_new_file(tmp_path):
